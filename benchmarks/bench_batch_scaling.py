@@ -1,10 +1,9 @@
 """Batch (channel-count) scaling of the flagship chain on one chip — the
 serving-deployment question: how does throughput grow as independent audio
-streams are batched onto the same v5e?
+streams are batched onto the same card?
 
-The per-iteration launch/transport floor (~2.3 ms) and the MXU's preference
-for tall matmuls both favor batching; this sweep quantifies it. Chained
-fori_loop timing, full-output-sum consumption (docs/PERFORMANCE.md rules).
+Per-call launch overhead and tall matmuls both favor batching; this sweep
+quantifies it. Chained fori_loop timing, full-output-sum consumption.
 
 Run: python benchmarks/bench_batch_scaling.py
 Writes benchmarks/batch_scaling.json.

@@ -1,4 +1,4 @@
-"""TPU tier crossover bench: rfft + c2c fft at several sizes, three tiers."""
+"""FFT tier crossover bench: rfft + c2c fft at several sizes, three tiers."""
 import sys, time
 import sys, os; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax, jax.numpy as jnp
@@ -22,7 +22,7 @@ def bench(kind, n, tier):
         fn = {"r2c": lambda v: jnp.fft.rfft(v), "c2c": lambda v: jnp.fft.fft(v)}[kind]
     def step(v, acc):
         # full-output consumption: sliced consumption lets XLA slice back
-        # through the dense/four-step dots and skip work (PERFORMANCE.md)
+        # through the dense/four-step dots and skip work
         s = fn(v + acc * 1e-30)
         return (jnp.sum(jnp.real(s)) + jnp.sum(jnp.imag(s))
                 ).astype(jnp.float32) * 1e-30

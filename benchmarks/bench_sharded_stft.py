@@ -1,11 +1,8 @@
-"""Sharded-vs-unsharded STFT throughput on a 1-device TPU mesh.
+"""Sharded-vs-unsharded STFT throughput on a 1-device mesh.
 
-VERDICT round-2 weak #4: the sharded STFT locals used to run the slow XLA
-FFT HLO inside shard_map while the single-chip path used the matmul tiers.
-After the universal dispatch routing (ops.fft inside the shard_map bodies),
-a 1-device mesh must show sharded ~ unsharded throughput — the per-shard
-local work now takes the same fast tier, and on one device the halo
-ppermutes are self-sends.
+The sharded STFT's per-shard work goes through the same ops.fft dispatch as
+the single-device path, and on one device the halo ppermutes are
+self-sends, so a 1-device mesh should show sharded ~ unsharded throughput.
 
 Writes benchmarks/sharded_stft_profile.json.
 """

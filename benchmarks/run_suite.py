@@ -1,10 +1,12 @@
-"""Benchmark suite — the TPU counterpart of the reference's bench/ programs
+"""Benchmark suite — the counterpart of the reference's bench/ programs
 (bench_stft.c size sweep, bench_resample_fixed.c quality/ratio sweep,
 bench_filter, bench_pipeline.c end-to-end chain), emitting the same record
 shape {name, elapsed_ms, samples_per_sec, rtf, iterations} as
 bench/bench_framework.h:31-48, one JSON object per line plus a profile file.
 
-Run: python benchmarks/run_suite.py [--out profiles.json] [--quick]
+Run: python benchmarks/run_suite.py [--out profiles.json] [--quick] [--cpu]
+
+Needs a GPU unless --cpu is given (a CPU smoke run, not a measurement).
 """
 
 import argparse
@@ -23,15 +25,27 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="write records to this file")
     ap.add_argument("--quick", action="store_true", help="fewer configs")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="CPU smoke run (no measurement)")
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from vv_dsp_tpu.ops import fir, pallas_kernels as pk
+    from vv_dsp_tpu.ops import fir, resample
     from vv_dsp_tpu.ops.stft import STFT
     from vv_dsp_tpu.models import NorthStarChain, SpectralGate
-    from vv_dsp_tpu.utils.profiling import chain_benchmark, detect_chip
+    from vv_dsp_tpu.utils.compile_cache import enable_compile_cache
+    from vv_dsp_tpu.utils.profiling import chain_benchmark
+
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
+    print(json.dumps({"device": device}), flush=True)
+    if dev.platform != "gpu" and not args.cpu:
+        print("run_suite.py: no GPU; nothing measured (--cpu for a smoke "
+              "run)", file=sys.stderr)
+        return 1
 
     def _use(out):
         # consume the FULL output: slicing one element lets XLA's simplifier
@@ -74,25 +88,13 @@ def main():
     record(chain_benchmark("stft_1024_roundtrip", rt, x, n_samples=total,
                            sample_rate=fs))
 
-    # --- packed-layout roundtrip (the zero-copy serving fast path:
-    # STFT.process_packed -> reconstruct_packed skips both natural-order
-    # relayout passes; same OLA/norm semantics) ---
-    import jax as _jax
-    if _jax.default_backend() == "tpu":
-        def rtp(v, acc):
-            ps = plan.process_packed(v + acc * 1e-30)
-            return _use(plan.reconstruct_packed(ps, n))
-
-        record(chain_benchmark("stft_1024_roundtrip_packed", rtp, x,
-                               n_samples=total, sample_rate=fs))
-
     # --- FIR tap sweep (bench_filter) ---
     taps_list = [64] if args.quick else [16, 64, 256, 1024]
     for taps in taps_list:
         h = fir.design_lowpass(taps, 0.3)
         record(chain_benchmark(
             f"fir_{taps}_best",
-            lambda v, acc, h=h: _use(pk.fir_apply_best(h, v + acc * 1e-30)),
+            lambda v, acc, h=h: _use(fir.fir_apply_best(h, v + acc * 1e-30)),
             x, n_samples=total, sample_rate=fs))
 
     # --- resampling (bench_resample_fixed.c ratios) ---
@@ -102,7 +104,7 @@ def main():
         xv = x[..., :n2]
         record(chain_benchmark(
             f"resample_poly_{up}_{down}",
-            lambda v, acc, up=up, down=down: _use(pk.resample_poly_best(
+            lambda v, acc, up=up, down=down: _use(resample.resample_poly_best(
                 v + acc * 1e-30, up, down)),
             xv, n_samples=channels * n2, sample_rate=fs))
 
@@ -145,9 +147,8 @@ def main():
             lambda v, acc: _use(_env.cepstrum_real(v + acc * 1e-30)),
             xz, n_samples=channels * n_czt, sample_rate=fs))
         # batched zoom-FFT serving shape: the whole 10 s signal chopped
-        # into 4096-point segments, ONE czt call — the 16-row czt_4096
-        # row above is launch-bound (~0.15 ms floor for 64k samples);
-        # this row shows the amortized throughput of the same transform
+        # into 4096-point segments, ONE czt call — the amortized
+        # throughput of the same transform as the 16-row czt_4096 row
         n_seg = n // n_czt
         xzb = x[:, : n_seg * n_czt].reshape(channels * n_seg, n_czt)
         record(chain_benchmark(
@@ -169,8 +170,7 @@ def main():
         sample_rate=fs))
 
     profile = {
-        "device": str(jax.devices()[0]),
-        "chip": detect_chip(),
+        "device": device,
         "channels": channels,
         "signal_samples": n,
         "results": [json.loads(r.to_json()) for r in results],
@@ -179,7 +179,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump(profile, f, indent=1)
         print(f"wrote {args.out}")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

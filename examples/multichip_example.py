@@ -1,7 +1,7 @@
 """Multi-chip sharded execution on a (channel, block) mesh.
 
-Simulates an 8-device CPU mesh by default; edit the jax.config lines below
-to run on real TPU chips.
+Simulates an 8-device CPU mesh; drop the jax.config lines below to shard
+over the machine's own devices (e.g. four GPUs).
 """
 
 import os
@@ -9,7 +9,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))  # repo root
 
-# Multi-device example: on a machine without TPUs, simulate 8 CPU devices.
+# Simulate 8 CPU devices.
 import jax
 
 jax.config.update("jax_platforms", "cpu")

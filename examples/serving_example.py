@@ -1,4 +1,4 @@
-"""Serving-ingest pattern: batch WAV decode overlapped with TPU compute.
+"""Serving-ingest pattern: batch WAV decode overlapped with device compute.
 
 Demonstrates the production loop the batch-scaling bench models
 (benchmarks/bench_batch_scaling.py): many audio streams per step, host

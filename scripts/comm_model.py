@@ -1,8 +1,8 @@
 """Analytic communication model for the sharded north-star chain — the
 transferable form of the gloo scaling evidence (benchmarks/
 scaling_report.json is measured on a 4-core CPU box whose transport is
-orders of magnitude slower than pod ICI; this model translates the DESIGN
-— bytes and collective rounds per step — onto real v5e ICI numbers).
+orders of magnitude slower than NVLink; this model translates the DESIGN
+— bytes and collective rounds per step — onto H100 NVLink numbers).
 
 Per weak-scaling step each block shard exchanges fixed-size halos with its
 neighbors (sizes depend only on the operator geometry, NOT on N or the
@@ -10,13 +10,13 @@ per-shard length), so the comm/compute ratio is:
 
     eff(N>=2) = T_compute / (T_compute + rounds * t_lat + bytes / BW)
 
-All halo payloads ride neighbor links only (jax.lax.ppermute with +-1
-shifts -> ICI nearest-neighbor traffic, never DCN), except the IIR state
-fix-up which all_gathers 2 floats/channel/shard.
+All halo payloads are neighbor exchanges (jax.lax.ppermute with +-1
+shifts), except the IIR state fix-up which all_gathers 2
+floats/channel/shard. The four cards of one host are joined all to all.
 
-Public v5e parameters (jax-ml.github.io/scaling-book: 4.5e10 B/s per ICI
-link one-directional, ~1 us per-hop latency; we charge 2 us per round to
-cover the launch + sync overhead measured on real collectives).
+NVIDIA H100 SXM data sheet: 900 GB/s of NVLink per card, 450 GB/s each
+way. The 2 us charged per round for launch + sync is an estimate, not a
+measurement.
 
 Run: python scripts/comm_model.py [--out benchmarks/comm_model.json]
 """
@@ -67,13 +67,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--per-device-samples", type=int, default=393216)
     ap.add_argument("--channels", type=int, default=16)
-    ap.add_argument("--link-bw", type=float, default=4.5e10,
-                    help="ICI one-directional bytes/s per link (v5e)")
+    ap.add_argument("--link-bw", type=float, default=4.5e11,
+                    help="NVLink bytes/s each way per card (H100)")
     ap.add_argument("--round-latency", type=float, default=2e-6,
                     help="charged per collective round (launch+sync+hop)")
-    ap.add_argument("--chain-msps", type=float, default=7035.0,
-                    help="measured single-chip chain throughput "
-                         "(BENCH_r04) -> per-step compute time")
+    ap.add_argument("--chain-msps", type=float, default=4605.0,
+                    help="single-card chain throughput -> per-step "
+                         "compute time (16 ch x 479,232 in 1.665 ms on "
+                         "one H100 SXM at 700 W)")
     ap.add_argument("--out", default=os.path.join(
         REPO, "benchmarks", "comm_model.json"))
     args = ap.parse_args()
@@ -84,7 +85,7 @@ def main():
     report = {"params": {
         "per_device_samples": args.per_device_samples,
         "channels": args.channels,
-        "ici_link_bytes_per_s": args.link_bw,
+        "link_bytes_per_s": args.link_bw,
         "round_latency_s": args.round_latency,
         "single_chip_chain_msps": args.chain_msps,
         "t_compute_s": t_compute,
@@ -114,12 +115,10 @@ def main():
     report["notes"] = (
         "Halo payloads are geometry-constants (independent of N and nearly "
         "independent of per-shard length), so predicted efficiency is flat "
-        "in N for N >= 2 as long as shards stay on one ICI ring. The gloo "
-        "box measures 0.93 (N=2) / 0.846 (N=4) because its transport "
-        "latency is ~100x ICI and every collective synchronizes "
-        "oversubscribed CPU processes; on pod ICI the same design is "
-        "comm-bound by < 1% . IIR (not in the chain) adds one all_gather "
-        "of 2 floats/channel/shard with the same conclusion.")
+        "in N for N >= 2. The gloo box measures 0.93 (N=2) / 0.846 (N=4) "
+        "because its transport latency is far above NVLink's and every "
+        "collective synchronizes oversubscribed CPU processes. IIR (not "
+        "in the chain) adds one all_gather of 2 floats/channel/shard.")
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"wrote {args.out}")

@@ -1,9 +1,9 @@
-"""Multi-host launch harness for TPU pod slices.
+"""Multi-process launch harness for the sharded ops.
 
-On Cloud TPU pods each host runs the SAME program; JAX auto-detects the
-coordinator from the TPU metadata, so launching is just running this script
-on every host (e.g. with `gcloud compute tpus tpu-vm ssh --worker=all`).
-For CPU-based multi-process simulation, pass the coordinator explicitly:
+Without --coordinator the script runs in ONE process over every local
+device (e.g. the four GPUs of one host). With --coordinator it runs as one
+of several processes on the CPU backend, one device each — the multi-process
+simulation; every process names the coordinator, the count and its id:
 
   # terminal 1..N (N processes x 1 device):
   python scripts/launch_multihost.py --coordinator localhost:9876 \
@@ -43,8 +43,8 @@ def main():
                          "rounds AND is the honest efficiency test: the "
                          "fused path's gather-heavy local body runs ~2.7x "
                          "slower on 1-core CPU XLA, which would deflate "
-                         "the comm/compute ratio (on TPU both paths share "
-                         "kernels and 'fused' halves collective rounds)")
+                         "the comm/compute ratio ('fused' halves the "
+                         "collective rounds)")
     ap.add_argument("--local-only", action="store_true",
                     help="no distributed init: run the same per-device work "
                          "on a private 1-device mesh (the no-communication "
@@ -61,10 +61,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         jax.distributed.initialize(args.coordinator, args.num_processes,
                                    args.process_id)
-    else:
-        from vv_dsp_tpu.parallel.mesh import initialize_distributed
-
-        initialize_distributed()
 
     import numpy as np
     import jax.numpy as jnp

@@ -10,9 +10,11 @@ Run: python scripts/run_scaling_report.py [--procs 1 2 4 8]
      [--per-device-samples 196608] [--out benchmarks/scaling_report.json]
 
 Each configuration launches N fresh `launch_multihost.py` processes against a
-local coordinator (jax.distributed over gloo), mirroring one-process-per-host
-TPU pod topology; the sharded ops therefore exercise real cross-process
-collectives, not single-process multi-device shortcuts.
+local coordinator (jax.distributed over gloo), one process per simulated
+host; the sharded ops therefore exercise real cross-process collectives,
+not single-process multi-device shortcuts. Every worker runs on the CPU
+backend (launch_multihost.py pins it), never on a GPU: several processes
+cannot share one card.
 """
 
 import argparse

@@ -73,12 +73,12 @@ def test_phase_unwrap(rng):
 
 
 # ---------------------------------------------------------------------------
-# four-step factorized tier (the large-N MXU path)
+# four-step factorized tier (the large-N matmul path)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
 def matmul_backend():
-    """Force the matmul tiers so the CPU suite exercises the TPU dispatch."""
+    """Force the matmul tiers (set_fft_backend("matmul"))."""
     vfft.set_fft_backend("matmul")
     yield
     vfft.set_fft_backend("auto")
@@ -94,16 +94,12 @@ def test_four_step_factors():
     try:
         assert vfft._fft_tier(8192, "r2c") == "four_step"
         assert vfft._fft_tier(2048, "r2c") == "dense"
-        # 4096 r2c moved to four-step in round 2 (measured 13.5 -> 8.3 ms
-        # on the 4096-pt STFT frame batch)
         assert vfft._fft_tier(4096, "r2c") == "four_step"
         assert vfft._fft_tier(4096, "c2c") == "four_step"
         # prime 65537 <= the Bluestein cap: chirp-Z on the pow2 tiers
-        # (measured v5e: 1.5x the HLO at 4099, 3.8x at 8191)
         assert vfft._fft_tier(65537, "c2c") == "bluestein"
         assert vfft._fft_tier((1 << 20) + 7, "c2c") == "xla"
-        # prime r2c in (2048, 4096]: no factorization, but dense still
-        # beats the HLO — must NOT regress to xla
+        # prime r2c in (2048, 4096]: no factorization, dense form
         assert vfft._fft_tier(4093, "r2c") == "dense"
         assert vfft._fft_tier(1 << 25, "c2c") == "xla"
     finally:

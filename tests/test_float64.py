@@ -1,8 +1,8 @@
 """Double-precision verification path — the VV_DSP_USE_DOUBLE analog
 (vv_dsp_types.h): every op takes its compute dtype from the input, so f64
-arrays under jax x64 run the whole stack in float64 (host/CPU only — TPUs
-have no f64; this is the verification build, like the reference's double
-cmake option).
+arrays under jax x64 run the whole stack in float64 (on the host CPU;
+this is the verification build, like the reference's double cmake
+option).
 
 x64 must be enabled before jax initializes arrays, so these tests run in a
 subprocess rather than flipping global state under the shared CPU fixture.

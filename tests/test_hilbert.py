@@ -52,27 +52,3 @@ def test_batched(rng):
     for i in range(4):
         np.testing.assert_allclose(z[i], sig.hilbert(x[i].astype(np.float64)),
                                    atol=1e-4)
-
-
-def test_masked_c2c_dispatch_rule():
-    """The round-5 measured dispatch rule: the fused masked-c2c HLO route
-    applies exactly when the auto tier picks a CT3 plan with
-    tile-UNALIGNED factors; explicit backends always use the factorized
-    r2c/c2r form."""
-    import jax
-    from vv_dsp_tpu.ops import fft as F
-    from vv_dsp_tpu.ops import hilbert as hb
-
-    if jax.default_backend() == "tpu":
-        # 479232 = 2^12*117 -> ct3 plan (96, 78, 64): 78 unaligned
-        assert hb._prefer_masked_c2c(479232)
-        # 2^19 -> (128, 64, 64): all 16-aligned -> factorized route
-        assert not hb._prefer_masked_c2c(1 << 19)
-    # below the CT3 band never uses the masked route
-    assert not hb._prefer_masked_c2c(4096)
-    # explicit backend choices are honored
-    F.set_fft_backend("xla")
-    try:
-        assert not hb._prefer_masked_c2c(479232)
-    finally:
-        F.set_fft_backend("auto")

@@ -242,8 +242,7 @@ def test_filtfilt_sos_short_signal_raises():
 class TestBlockStateSpacePath:
     """Long signals route through the block state-space cascade
     (_iir_apply_block): one LTI system, per-block triangular-Toeplitz
-    matmul, cross-block affine scan. Measured 49x over the per-section
-    whole-signal scan on v5e (182 -> 3.7 ms, 16ch x 479k, butter-4)."""
+    matmul, cross-block affine scan."""
 
     def _x(self, rng, n=20000, c=3):
         return rng.standard_normal((c, n)).astype(np.float32)

@@ -279,51 +279,19 @@ def test_streaming_chain_process_blocks_matches_loop(rng):
 
 
 def test_northstar_chain_f64_oracle_parity(rng):
-    """The DEFAULT chain (bf16x3 head + bf16x3 STFT/mel/DCT MXU stages)
-    must stay inside the 5e-5 north-star parity contract (BASELINE.md:49)
-    against a full float64 scipy/numpy oracle of the whole pipeline.
-    Measured on TPU v5e: 2.2e-5 (x3 default) / 1.7e-6 (f32 kernels) — the
-    log() between mel and DCT converts the mel energies' relative error
-    into the MFCCs' absolute error, which is why the chain error is ~3x
-    the head's own 7.7e-6."""
-    import dataclasses
-    from scipy import signal as ss
-    from vv_dsp_tpu.ops import fir as vfir
-    from vv_dsp_tpu.ops.mel import mel_filterbank_np
-    from vv_dsp_tpu.ops.window import get_window_np
-    from vv_dsp_tpu.ops.dct import _dct2_matrix
+    """The default chain must stay inside the 5e-5 north-star parity
+    contract (BASELINE.md:49) against the float64 scipy/numpy oracle of
+    the whole pipeline (utils/oracle.py, which chip_smoke.py also runs at
+    full size). The log() between mel and DCT converts the mel energies'
+    relative error into the MFCCs' absolute error; the plain fp32 path
+    keeps it an order inside the contract."""
+    from vv_dsp_tpu.utils import oracle
 
     x64 = rng.standard_normal((2, 48000))
-    x = jnp.asarray(x64, dtype=jnp.float32)
     chain = NorthStarChain()
-    got = np.asarray(chain(x), np.float64)
-
-    h = vfir.design_lowpass_np(chain.fir_taps, chain.fir_cutoff
-                               ).astype(np.float64)
-    y = ss.lfilter(h, [1.0], x64, axis=-1)
-    yr = ss.resample_poly(y, chain.up, chain.down, axis=-1)
-    n_out = -(-y.shape[-1] * chain.up // chain.down)
-    yr = yr[..., :n_out]
-    nfft, hop = chain.nfft, chain.hop
-    w = get_window_np(chain.window, nfft, None).astype(np.float64)
-    nf = 1 + (n_out - nfft + hop) // hop
-    frames = np.stack(
-        [np.pad(yr[:, i * hop:i * hop + nfft],
-                ((0, 0), (0, max(0, nfft - (n_out - i * hop)))))
-         for i in range(nf)], axis=1)
-    pw = np.abs(np.fft.rfft(frames * w, axis=-1)) ** 2
-    sr = chain.sample_rate * chain.up / chain.down
-    fb = mel_filterbank_np(nfft, chain.n_mels, sr, 0.0, sr / 2,
-                           "htk").astype(np.float64)
-    lm = np.log(pw @ fb.T + 1e-10)
-    d = _dct2_matrix(chain.n_mels).astype(np.float64)[:chain.n_mfcc]
-    want = lm @ d.T
-
+    got = np.asarray(chain(jnp.asarray(x64, dtype=jnp.float32)), np.float64)
+    want = oracle.northstar_chain(x64, chain)
     assert got.shape == want.shape
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() / scale < 5e-5
-    # and the full-f32 kernel variant is an order tighter
-    full = dataclasses.replace(chain, head_algorithm="f32",
-                               stft_algorithm="f32")
-    got32 = np.asarray(full(x), np.float64)
-    assert np.abs(got32 - want).max() / scale < 1e-5
+    err = oracle.rel_err(got, want)
+    assert err < 5e-5
+    assert err < 1e-5

@@ -136,7 +136,7 @@ def test_multistage_vs_single_stage(rng):
     from vv_dsp_tpu.ops import resample
     t = np.arange(44100) / 44100.0
     x = jnp.asarray(np.sin(2 * np.pi * 997.0 * t)[None, :], dtype=jnp.float32)
-    y = resample.resample_multistage(x, 160, 147, use_pallas=False)
+    y = resample.resample_multistage(x, 160, 147)
     assert y.shape[-1] == -(-x.shape[-1] * 160 // 147)
     want = np.sin(2 * np.pi * 997.0 * np.arange(y.shape[-1]) / 48000.0)
     np.testing.assert_allclose(np.asarray(y[0, 1000:-1000]),
@@ -153,7 +153,7 @@ def test_multistage_large_prime(rng):
         u *= su; d *= sd
     assert (u, d) == (10, 11)
     x = jnp.asarray(rng.standard_normal((2, 2200)), dtype=jnp.float32)
-    y = resample_multistage(x, 10, 11, use_pallas=False)
+    y = resample_multistage(x, 10, 11)
     assert y.shape[-1] == -(-2200 * 10 // 11)
 
 
@@ -193,8 +193,7 @@ def test_upfirdn_mxu_scipy_parity(rng):
 
 
 def test_resample_poly_mxu_batched_3d(rng):
-    """The conv path accepts any leading batch shape (the Pallas kernel is
-    2-D only)."""
+    """The conv path accepts any leading batch shape."""
     x = rng.standard_normal((2, 3, 999)).astype(np.float32)
     got = np.asarray(vrs.resample_poly_mxu(jnp.asarray(x), 4, 3))
     want = sig.resample_poly(x.astype(np.float64), 4, 3, axis=-1)

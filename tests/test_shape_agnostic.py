@@ -12,7 +12,6 @@ from vv_dsp_tpu.ops.stft import STFT
 from vv_dsp_tpu.ops import mel as vmel
 from vv_dsp_tpu.ops import resample as vrs
 from vv_dsp_tpu.ops import fir as vfir
-from vv_dsp_tpu.ops import pallas_kernels as vpk
 from vv_dsp_tpu.models import SpectralGate, NorthStarChain
 
 
@@ -75,12 +74,12 @@ def test_fused_head_ndim_sweep(x3d):
 
 def test_best_paths_ndim_sweep(x3d):
     h = vfir.design_lowpass_np(32, 0.4).astype(np.float32)
-    ref2 = np.asarray(vpk.fir_apply_best(jnp.asarray(h),
-                                         jnp.asarray(_fold(x3d))))
-    got3 = np.asarray(vpk.fir_apply_best(jnp.asarray(h), jnp.asarray(x3d)))
+    ref2 = np.asarray(vfir.fir_apply_best(jnp.asarray(h),
+                                          jnp.asarray(_fold(x3d))))
+    got3 = np.asarray(vfir.fir_apply_best(jnp.asarray(h), jnp.asarray(x3d)))
     np.testing.assert_array_equal(got3.reshape(ref2.shape), ref2)
-    ref2 = np.asarray(vpk.resample_poly_best(jnp.asarray(_fold(x3d)), 2, 1))
-    got1 = np.asarray(vpk.resample_poly_best(jnp.asarray(x3d[0, 0]), 2, 1))
+    ref2 = np.asarray(vrs.resample_poly_best(jnp.asarray(_fold(x3d)), 2, 1))
+    got1 = np.asarray(vrs.resample_poly_best(jnp.asarray(x3d[0, 0]), 2, 1))
     np.testing.assert_array_equal(
         got1, ref2.reshape(x3d.shape[:2] + (-1,))[0, 0])
 

@@ -27,11 +27,12 @@ def test_benchmark_record_shape():
 
 
 def test_roofline_model():
-    r = profiling.fir_roofline(16, 480000, 64, chip="v5e")
+    kind = "NVIDIA H100 80GB HBM3"
+    r = profiling.fir_roofline(16, 480000, 64, device_kind=kind)
     assert r.attainable_seconds > 0
-    # 64-tap FIR on v5e: ~1 GFLOP vs ~61 MB -> bandwidth-bound
+    # 64-tap FIR at the fp32 peak: ~1 GFLOP vs ~61 MB -> bandwidth-bound
     assert not r.compute_bound
-    big = profiling.fir_roofline(16, 480000, 4096, chip="v5e")
+    big = profiling.fir_roofline(16, 480000, 4096, device_kind=kind)
     assert big.compute_bound
     assert 0 < r.achieved_fraction(r.attainable_seconds * 2) <= 0.5 + 1e-9
 

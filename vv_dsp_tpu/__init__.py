@@ -1,14 +1,14 @@
-"""vv-dsp-tpu: a TPU-native DSP framework built on JAX/XLA/Pallas.
+"""vv-dsp-tpu: a DSP framework built on JAX/XLA.
 
 A from-scratch re-design of the capability surface of the C99 library
-``crlotwhite/vv-dsp`` (reference mounted at /root/reference) for TPU hardware:
+``crlotwhite/vv-dsp`` for accelerators (it runs on an NVIDIA H100):
 
 - arrays-in/arrays-out functional API on ``(..., time)`` / ``(..., frames, bins)``
   jnp arrays (all ops batch over leading axes),
 - "plans" are precomputed-constant pytrees (windows, twiddles, chirps, filterbanks
   generated host-side in float64 numpy, cast to the compute dtype) plus
   ``jax.jit`` shape specialization,
-- hot loops run on the MXU (matmul-form DCT/mel/polyphase) or as Pallas kernels,
+- hot loops are plain XLA: batched FFTs and matmul-form DCT/mel/polyphase,
 - multi-chip scaling via ``jax.sharding.Mesh`` + ``shard_map`` with ``ppermute``
   halo exchange for overlap-save/OLA boundaries (see ``vv_dsp_tpu.parallel``).
 
@@ -70,7 +70,6 @@ from vv_dsp_tpu.ops.framing import num_frames, fetch_frames, overlap_add
 #   vv_dsp_tpu.models     — end-to-end pipelines
 #   vv_dsp_tpu.streaming  — block streaming with carried state
 #   vv_dsp_tpu.io         — WAV codec (native C++ backend)
-#   vv_dsp_tpu.ops.pallas_kernels — Pallas TPU kernels
 #   vv_dsp_tpu.utils.{profiling,checkpoint}
 
 __version__ = "0.5.0"

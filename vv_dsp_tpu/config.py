@@ -2,13 +2,14 @@
 
 The reference library (vv-dsp) is float32 by default with float64 internals for
 constant generation (e.g. src/core/core.c:44-53, src/spectral/czt.c:84-111 use
-double accumulators / double chirp math). We mirror that idiom the TPU way:
+double accumulators / double chirp math). We mirror that idiom:
 
-- compute dtype: float32 (TPU-native); bfloat16 allowed for throughput paths,
+- compute dtype: float32; bfloat16 inputs are promoted at op entry,
 - all *constants* (windows, twiddle/chirp tables, filterbanks, filter taps,
   SOS coefficients) are generated host-side in numpy float64 and cast once,
-- matmul-form transforms use ``lax.Precision.HIGHEST`` so f32 MXU passes keep
-  the SciPy-parity contract (<= 5e-5 for FFT-class ops).
+- every dot and conv passes ``precision=MATMUL_PRECISION`` (``HIGHEST`` by
+  default, full fp32) so the SciPy-parity contract holds (<= 5e-5 for
+  FFT-class ops); nothing sets jax_default_matmul_precision globally.
 """
 
 from __future__ import annotations
@@ -21,21 +22,19 @@ from jax import lax
 DEFAULT_REAL_DTYPE = jnp.float32
 DEFAULT_COMPLEX_DTYPE = jnp.complex64
 
-# Matmul precision used by matmul-form transforms (DCT, mel filterbank,
-# polyphase, matmul-DFT). HIGHEST on TPU = f32-accurate multi-pass bf16,
-# which is what the SciPy-parity tolerances need. Switchable at runtime —
-# the TPU analog of the reference's float/double precision build option
-# (VV_DSP_USE_DOUBLE, vv_dsp_types.h): lower tiers trade accuracy for MXU
-# throughput on compute-bound matmuls. Measured curve (error vs f64 oracle
-# and Msps per tier/surface): docs/PERFORMANCE.md +
-# benchmarks/accuracy_tradeoff.json. Summary: "high" = ~1e-5 err for
-# ~5-10%; "default" = ~2e-3 err for 1.4-1.5x.
+# Matmul precision of every dot and conv (FIR, polyphase, DCT, mel
+# filterbank, matmul-DFT). Switchable at runtime — the analog of the
+# reference's float/double precision build option (VV_DSP_USE_DOUBLE,
+# vv_dsp_types.h). On the GPU, per JAX: "highest" runs float32 dots on the
+# CUDA cores (the parity contract); "high" and "default" let float32 dots
+# run as TF32 on the tensor cores (10-bit mantissa inputs, float32
+# accumulation) — faster on compute-bound matmuls, error not measured here.
 MATMUL_PRECISION = lax.Precision.HIGHEST
 
 _PRECISIONS = {
-    "highest": lax.Precision.HIGHEST,  # f32-accurate (parity contract)
-    "high": lax.Precision.HIGH,        # 3-pass bf16 (~1e-5)
-    "default": lax.Precision.DEFAULT,  # single-pass bf16 (~1e-2, fastest)
+    "highest": lax.Precision.HIGHEST,  # fp32 (parity contract)
+    "high": lax.Precision.HIGH,        # TF32 tensor cores
+    "default": lax.Precision.DEFAULT,  # TF32 tensor cores
 }
 
 
@@ -146,22 +145,15 @@ _flush_denormals = True
 
 
 def set_flush_denormals(enabled: bool) -> bool:
-    """Denormal-flushing control, the TPU answer to the reference's per-thread
-    FTZ/DAZ MXCSR/FPCR toggles (src/core/fp_env.c:9-109).
+    """Denormal-flushing intent, the counterpart of the reference's
+    per-thread FTZ/DAZ MXCSR/FPCR toggles (src/core/fp_env.c:9-109).
 
-    TPU vector/matrix units flush subnormals by design — there is no runtime
-    bit to set and no denormal slow path to avoid (the reference's
-    bench_denormals.c problem does not exist on this hardware). The setting
-    is recorded so code can query intent; returns the effective state
-    (always True on TPU).
+    XLA exposes no runtime bit for this, so the setting is recorded for
+    code to query and changes no kernel; returns the recorded state. What
+    the GPU does with subnormals on these paths is not measured yet.
     """
     global _flush_denormals
-    import jax
-
-    if jax.default_backend() == "tpu":
-        _flush_denormals = True  # hardware behavior, not switchable
-    else:
-        _flush_denormals = bool(enabled)
+    _flush_denormals = bool(enabled)
     return _flush_denormals
 
 

@@ -1,7 +1,7 @@
 """Batch WAV ingest — the serving-side data loader.
 
 The reference decodes one file at a time on the caller's thread
-(src/audio/wav.c); a TPU serving deployment feeds the chip (batch,
+(src/audio/wav.c); a serving deployment feeds the device (batch,
 channels, time) tensors of MANY streams at once (the batch-scaling bench
 runs 128 channels per step), so ingest must decode in parallel and land
 directly in one contiguous planar tensor. Two backends, same semantics:
@@ -11,7 +11,7 @@ directly in one contiguous planar tensor. Two backends, same semantics:
   slab of the shared output buffer; no per-file Python allocation, no GIL.
 - fallback: concurrent.futures over the pure-numpy single-file reader.
 
-``prefetch_batches`` overlaps decode of batch k+1 with TPU compute on
+``prefetch_batches`` overlaps decode of batch k+1 with device compute on
 batch k (one background thread, double-buffered) — the host-side input
 pipeline pattern.
 """

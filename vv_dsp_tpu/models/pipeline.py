@@ -49,22 +49,9 @@ class NorthStarChain:
     n_mfcc: int = 20
     sample_rate: float = 48000.0
     window: str = "hann"
-    #: fuse FIR+resample into ONE banded-matrix MXU pass (sample-exact vs
+    #: fuse FIR+resample into ONE banded-matrix matmul (sample-exact vs
     #: the staged pair; erases the intermediate HBM round trip)
     fused_head: bool = True
-    #: dot algorithm for the fused head's banded matmul.  "bf16x3"
-    #: (error-compensated 3-pass bf16 — lax.Precision.HIGH semantics) is
-    #: the default: measured max rel err 7.7e-6 vs a float64 oracle at the
-    #: flagship geometry, 6x inside the chain's 5e-5 parity contract
-    #: (BASELINE.md:49) and 400x inside the filter contract (3e-3), for
-    #: ~1.9x the head matmul throughput.  Set "f32" for full 6-pass f32
-    #: accumulation (2.3e-6), or None to follow the global
-    #: config.set_matmul_precision knob.
-    head_algorithm: str | None = "bf16x3"
-    #: dot algorithm for the fused STFT->mel->MFCC kernel's MXU stages
-    #: (DFT tail / mel projection / DCT): same tiers and rationale as
-    #: head_algorithm; the FFT butterflies are always native f32 (VPU).
-    stft_algorithm: str | None = "bf16x3"
 
     @functools.cached_property
     def fir_coeffs(self):
@@ -80,88 +67,18 @@ class NorthStarChain:
     def stft_plan(self) -> STFT:
         return STFT(self.nfft, self.hop, self.window)
 
-    def _tiled_handoff_ok(self, n_in: int) -> bool:
-        """True when the head's banded segments can feed the packed STFT
-        kernel zero-copy: b_out == hop, whole blocks, packed geometry, and
-        enough segments for the STFT's lane windows."""
-        import math as _math
-        from vv_dsp_tpu.ops import pallas_fft as _pf
-        from vv_dsp_tpu.ops import pallas_upfirdn as _pu
-        from vv_dsp_tpu.ops import resample as _rs
-        if jax.default_backend() != "tpu" or not self.fused_head:
-            return False
-        if not _pf.stft_mel_packed_supported(self.nfft, self.hop):
-            return False
-        g = _math.gcd(self.up, self.down)
-        up, down = self.up // g, self.down // g
-        if up == 1 and down == 1:
-            return False
-        h_np = self.fir_coeffs.astype("float64")
-        gf, offset = _rs._fused_fir_resample_filter(tuple(h_np), up, down)
-        if not _pu.banded_supported(up, down, len(gf), offset):
-            return False
-        b_out = _pu.pick_b_out(up, down, len(gf), offset)
-        n_out = -(-n_in * up // down)
-        m0 = max(0, -(-(up * n_in - offset) // down))
-        if (b_out != self.hop or n_out % b_out
-                or not (0 < n_out - m0 <= 1024 and m0 > 0)):
-            return False
-        # STFT lane-window coverage: nblk_p >= nb
-        tk, q = 128, self.nfft // self.hop
-        nf = 1 if n_out < self.nfft else 1 + (n_out - self.nfft
-                                              + self.hop) // self.hop
-        nf_p = -(-nf // tk) * tk
-        lanes_p = -(-(tk + q - 1) // 128) * 128
-        nb = nf_p - tk + lanes_p
-        nblk_p = -(-(-(-n_out // b_out)) // 128) * 128 + 128
-        return nblk_p >= nb
-
     def __call__(self, x):
         """x: (channels, n) -> (channels, frames, n_mfcc)."""
-        from vv_dsp_tpu.ops import pallas_kernels as _pk
+        from vv_dsp_tpu.ops import resample as _rs
         x = _promote_audio(x)
-        sr = self.sample_rate * self.up / self.down
-        if (x.ndim == 2 and not jnp.iscomplexobj(x)
-                and self._tiled_handoff_ok(x.shape[-1])):
-            # zero-copy tiled handoff: the banded head's raw segment layout
-            # IS the packed STFT kernel's input tiling (b_out == hop) — the
-            # head epilogue transpose and the STFT prologue transpose both
-            # vanish.  Backward runs the staged differentiable composite.
-            from vv_dsp_tpu.ops import pallas_fft as _pf
-            from vv_dsp_tpu.ops.resample import (fir_resample_fused,
-                                                 fir_resample_fused_tiled)
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-
-            def fast(xv):
-                y_t, _, vb, n_out = fir_resample_fused_tiled(
-                    self.fir_coeffs, xv, self.up, self.down,
-                    algorithm=self.head_algorithm)
-                return _pf.stft_mfcc_pallas_tiled(
-                    y_t, n_out, vb, self.nfft, self.hop, self.n_mels,
-                    self.n_mfcc, sr, window=self.window,
-                    algorithm=self.stft_algorithm)
-
-            def ref(xv):
-                y = fir_resample_fused(self.fir_coeffs, xv, self.up,
-                                       self.down,
-                                       algorithm=self.head_algorithm)
-                return _mel.mfcc_stft(y, self.nfft, self.hop, self.n_mels,
-                                      self.n_mfcc, sr, window=self.window,
-                                      algorithm=self.stft_algorithm)
-
-            return kernel_with_xla_vjp(fast, ref)(x)
         if self.fused_head:
-            from vv_dsp_tpu.ops.resample import fir_resample_fused
-            y = fir_resample_fused(self.fir_coeffs, x, self.up, self.down,
-                                   algorithm=self.head_algorithm)
+            y = _rs.fir_resample_fused(self.fir_coeffs, x, self.up, self.down)
         else:
-            y = _pk.fir_apply_best(self.fir_coeffs, x)
-            y = _pk.resample_poly_best(y, self.up, self.down)
-        # best-path STFT->mel: fused Stockham Pallas kernel on TPU (no
-        # frames/spectrum/power in HBM), power-parts matmuls otherwise
+            y = _fir.fir_apply_best(self.fir_coeffs, x)
+            y = _rs.resample_poly_best(y, self.up, self.down)
         return _mel.mfcc_stft(y, self.nfft, self.hop, self.n_mels,
-                              self.n_mfcc, sr, window=self.window,
-                              algorithm=self.stft_algorithm)
+                              self.n_mfcc, self.sample_rate * self.up
+                              / self.down, window=self.window)
 
     def apply_sharded(self, x, mesh, fuse_halos: bool = True):
         """Multi-chip execution: FIR and resample run as halo-exchange
@@ -279,24 +196,7 @@ class NorthStarChain:
             gpos2 = (idx_blk * out_local
                      + jnp.arange(ext_out, dtype=jnp.int32))
             y2 = jnp.where(gpos2 < n2, y2, jnp.zeros_like(y2))
-            # local STFT over the extended resampled block — same fast
-            # tier as stft_process_sharded
-            from vv_dsp_tpu.ops import pallas_fft as _pf
-            if (y2.ndim == 2 and _pf.stft_mel_supported(self.nfft, self.hop)
-                    and jax.default_backend() == "tpu"):
-                from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-
-                def fast(ev):
-                    return _pf.stft_spectrum_stockham(
-                        ev, self.nfft, self.hop, self.window,
-                        onesided=True)[:, :nf_local, :]
-
-                def ref(ev):
-                    fr = _framing.frames_strided(ev, self.nfft, self.hop,
-                                                 nf_local) * wn
-                    return _offt.rfft(fr)
-
-                return kernel_with_xla_vjp(fast, ref)(y2)
+            # local STFT over the extended resampled block
             frames = _framing.frames_strided(y2, self.nfft, self.hop,
                                              nf_local) * wn
             return _offt.rfft(frames)
@@ -346,7 +246,7 @@ class SpectralGate:
         """x: (channels, n) -> (channels, n) denoised."""
         x = _promote_audio(x)
         if x.ndim != 2 and not jnp.iscomplexobj(x):
-            # rank-oblivious: fold leading axes so the fused kernel applies
+            # rank-oblivious: fold leading axes into channels
             from vv_dsp_tpu.utils.shapes import collapse_leading
             x2, restore = collapse_leading(x)
             return restore(self(x2), 1)
@@ -354,39 +254,6 @@ class SpectralGate:
         pad = self._edge_pad
         xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad, pad)])
         n_pad = xp.shape[-1]
-        from vv_dsp_tpu.ops import pallas_fft as _pf
-        from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-        if (x.ndim == 2 and not jnp.iscomplexobj(x)
-                and (_pf.stft_gate_supported(self.nfft, self.hop)
-                     or _pf.stft_gate_packed_supported(self.nfft, self.hop))
-                and jax.default_backend() == "tpu"):
-            # whole pipeline in ONE kernel pass (every retained sample
-            # exact; the pad slices absorb the kernel's periodic-norm edge
-            # semantics) — the packed-real variant when the geometry
-            # allows (half the butterfly/tail work both directions)
-            if _pf.stft_gate_packed_supported(self.nfft, self.hop):
-                # split pair (spectrum kernel -> HBM planes -> in-VMEM
-                # masked inverse): measured ~4% over the single fused
-                # kernel (1.63 vs 1.70 ms at 1024/256 x 16ch x 479k, v5e
-                # — the fused form serializes fwd+inv compute per tile)
-                fast = lambda xv: _pf.stft_gate_split(
-                    xv, self.nfft, self.hop, self.threshold, self.window)
-            else:
-                fast = lambda xv: _pf.stft_gate_pallas(
-                    xv, self.nfft, self.hop, self.threshold, self.window)
-
-            def ref(xv):  # parts-form XLA path for the backward pass
-                re, im = self.stft_plan.power_parts(xv)
-                p2 = re * re + im * im
-                peak2 = jnp.max(p2, axis=-1, keepdims=True)
-                keep = p2 >= (self.threshold * self.threshold) * peak2
-                zero = jnp.zeros_like(re)
-                return self.stft_plan.reconstruct_parts(
-                    jnp.where(keep, re, zero), jnp.where(keep, im, zero),
-                    xv.shape[-1])
-
-            out = kernel_with_xla_vjp(fast, ref)(xp)
-            return out[..., pad:pad + n]
         if self.stft_plan.supports_direct():
             # parts-form roundtrip: framing-free forward, gate on squared
             # magnitudes (mag >= t*peak  <=>  mag^2 >= t^2*peak^2), matmul

@@ -4,7 +4,7 @@ SciPy convention (src/spectral/czt.h:11-13): X[k] = sum_n x[n] A^{-n} W^{nk},
 k in [0, M). General spiral contours (|W| != 1, |A| != 1) supported through
 magnitude/angle decomposition like the reference (src/spectral/czt.c:84-111).
 
-TPU-native design: W and A are *static plan parameters* (Python complex), so
+Design: W and A are *static plan parameters* (Python complex), so
 every chirp table g[n] = A^{-n} W^{n^2/2}, the convolution kernel
 b[i] = W^{-(i-(N-1))^2/2}, its FFT, and the output chirp W^{k^2/2} are computed
 host-side in float64 numpy and baked into the jitted computation as constants.

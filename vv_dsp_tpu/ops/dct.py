@@ -9,8 +9,8 @@ Conventions preserved exactly (src/spectral/dct.c:18-68):
 - DCT-III backward: the DCT-II forward scaled by 2/N (inverse pair)
 - DCT-IV  : self-inverse; backward scaled by 2/N                      (:57-68)
 
-TPU-native design: the transforms are dense cosine-matrix matmuls — the MXU's
-native shape, batched over leading axes, with the cosine tables generated
+Design: the transforms are dense cosine-matrix matmuls, batched over leading
+axes, with the cosine tables generated
 host-side in float64. This is both exact for every N (the reference's naive
 O(N^2) loops have the same complexity but run at scalar-CPU speed) and faster
 than an FFT decomposition for the small/odd N the test sweep uses
@@ -33,7 +33,7 @@ from vv_dsp_tpu.ops import fft as _fft
 from vv_dsp_tpu.utils.nan_policy import NanPolicy, apply_nan_policy
 
 # Above this size (power of two only) DCT-II/III go through rFFT instead of a
-# dense matmul: matmul is O(N^2) and wins on the MXU up to a few thousand.
+# dense matmul: matmul is O(N^2); the threshold is untuned on the GPU.
 _FFT_THRESHOLD = 4096
 
 

@@ -13,7 +13,7 @@ Semantics preserved:
   reference's sign convention (A(z) = 1 + sum a_m z^-m, k = -acc/e), and the
   LP spectrum magnitude gain/|1 - sum a_m e^{jm theta}| (lpc.c:55-72).
 
-TPU-native design: cepstrum/min-phase are FFT->pointwise->FFT chains (fused by
+Design: cepstrum/min-phase are FFT->pointwise->FFT chains (fused by
 XLA); Levinson is an order-static unrolled recursion of vectorized updates —
 order is small (<=32) so the O(p^2) work is negligible and stays on device,
 batched over leading axes.

@@ -3,7 +3,7 @@
 Reference: src/spectral/fft.c (plan API + backend vtable), src/spectral/
 fft_kiss.c (radix-2 + naive DFT), src/spectral/utils.c (fftshift/wrap/unwrap).
 
-TPU-native design: the FFT "plan" is a compiled computation — ``jnp.fft``
+Design: the FFT "plan" is a compiled computation — ``jnp.fft``
 under jit is traced once per shape and cached, which is the create-once/
 execute-many contract of vv_dsp_fft_make_plan/execute (src/spectral/
 fft.c:63-107). Scaling convention preserved: forward unscaled, inverse
@@ -13,18 +13,13 @@ The reference's pluggable backend vtable (src/spectral/fft_backend.h:32-38,
 runtime-switchable kiss/FFTW/FFTS) maps to a runtime-switchable kernel
 choice here:
 
-- ``"xla"``    — XLA's FFT HLO. Any size, but SLOW on TPU (~86 GFLOPS
-                 effective on v5e; the FFT HLO does not use the MXU).
-- ``"matmul"`` — MXU matmul forms: dense DFT for small n (O(N^2) FLOPs, but
-                 the MXU's ~50-60 f32 TFLOPS make it 5-15x FASTER than the
-                 FFT HLO for batched transforms up to a few thousand points;
-                 benchmarked: STFT-1024 x 30k frames: 18.3 ms xla vs ~1.3 ms
-                 matmul), and a FOUR-STEP factorized DFT for large n (see
-                 below) — the role the reference fills with its radix-2
-                 kernel / FFTW (src/spectral/fft_kiss.c:27-74).
-- ``"auto"``   — (default) on TPU: dense matmul below the measured
-                 crossover, four-step above it when n factors, xla otherwise
-                 (CPU: always xla).
+- ``"xla"``    — XLA's FFT HLO (cuFFT on the GPU). Any size.
+- ``"matmul"`` — matmul forms: dense DFT for small n (O(N^2) FLOPs), a
+                 FOUR-STEP factorized DFT for large composite n (see below),
+                 and Bluestein for the rest — the role the reference fills
+                 with its radix-2 kernel / FFTW (src/spectral/fft_kiss.c:
+                 27-74). Plain JAX; selected only by set_fft_backend.
+- ``"auto"``   — (default) the same as ``"xla"``.
 
 Four-step factorized DFT (the large-N tier): for composite n = n1*n2 the DFT
 decomposes as
@@ -32,9 +27,8 @@ decomposes as
                     * W_{n2}^{j2 k2}
 i.e. reshape to (n1, n2) -> DFT columns (matmul vs the dense n1-basis) ->
 elementwise twiddle -> DFT rows (matmul vs the n2-basis) -> transpose. With
-balanced factors both matmuls ride the MXU at O(N*(n1+n2)) FLOPs, erasing
-the O(N^2) dense blow-up while staying ~50x faster than the FFT HLO's
-effective FLOPs on this hardware. All bases and twiddles are generated
+balanced factors both matmuls cost O(N*(n1+n2)) FLOPs, erasing the O(N^2)
+dense blow-up. All bases and twiddles are generated
 ON-DEVICE from iota (exact int32 phase arithmetic, mod n, then one cos/sin)
 — no multi-MB embedded constants, no host-side cache to leak tracers.
 
@@ -57,35 +51,23 @@ _TWO_PI = 6.283185307179586476925286766559
 _BACKEND = "auto"
 _MATMUL_MAX_N = 4096
 _BACKENDS = ("auto", "xla", "matmul")
+# Tier boundaries of the matmul backend. The values were tuned on another
+# accelerator and are untuned on the GPU.
 # Largest dense-basis factor the four-step tier will use.
 _FOUR_STEP_MAX_FACTOR = 4096
-# Four-step cost grows as n*(n1+n2) ~ n^1.5 vs the HLO's n log n: honest
-# round-3 chained timing (16ch, best-of-3) has the four-step tying/winning
-# the HLO through n = 262144 (0.86-1.43x) and losing decisively above
-# (0.43x at 479232, 0.55x at 2^20) — round 2's "keeps winning above"
-# extrapolated from n=4096 with the flawed harness and cost the routed
-# full-signal Hilbert 3.5x until this cap.
+# Four-step cost grows as n*(n1+n2) ~ n^1.5 vs the HLO's n log n.
 _FOUR_STEP_MAX_N = 1 << 18
 # Above it, a THREE-level factorization n = f1*f2*f3 (six-step: two twiddle
-# stages, cost n*(f1+f2+f3) ~ 3n*n^(1/3)) keeps the transform on the MXU
-# where the 2-level n^1.5 form loses to the HLO — at n = 479232 the best
-# 3-split (96, 78, 64) is 5.9x fewer FLOPs than the best 2-split
-# (768, 624).  Measured v5e (16ch chained, round 5): 2.26x over the HLO at
-# 479232 c2c, 1.9x at 2^20 — the round-4 verdict's "long-signal cliff".
-# Cap: past ~2^22 the working set (4 f32 planes of n + twiddles) nears the
-# HBM-resident sweet spot and the HLO's n log n catches up; unmeasured
-# beyond, so the route stops there.
+# stages, cost n*(f1+f2+f3) ~ 3n*n^(1/3)) — at n = 479232 the best 3-split
+# (96, 78, 64) is 5.9x fewer FLOPs than the best 2-split (768, 624).
+# Capped where the working set (4 f32 planes of n + twiddles) grows large.
 _CT3_MAX_N = 1 << 22
-# ...and the measured lower crossover vs the two-level form (v5e, 16ch
-# chained c2c): four-step wins at 2^15/2^16 (0.31/0.43 vs 0.42/0.47 ms),
-# ct3 ties-wins at 2^17 (0.73 vs 0.80) and wins 1.6x at 2^18 (1.18 vs
-# 1.89) — the three-level form takes over from here.
+# ...and its lower boundary vs the two-level form.
 _CT3_MIN_N = 1 << 17
 # Bluestein only while its 5-smooth chirp length p ~ 2n stays on the
 # four-step/dense tiers (p <= _FOUR_STEP_MAX_N); beyond that the chirp's
-# own FFT would fall back to the HLO (or, before this guard, recurse
-# into another Bluestein and build multi-million-point chirp tables —
-# which crashed the TPU worker on a 479k-point Hilbert).
+# own FFT would recurse into another Bluestein and build
+# multi-million-point chirp tables.
 _BLUESTEIN_MAX_N = 1 << 17
 
 
@@ -124,7 +106,7 @@ def clear_plan_cache() -> None:
 def _ct3_split(n: int) -> tuple[int, ...] | None:
     """Best <= 3-factor split of n with every factor <= the dense-basis cap,
     minimizing sum(factors) — the matmul-DFT FLOP count is n * sum.  Factors
-    ordered descending so the largest feeds the first MXU contraction.
+    ordered descending so the largest feeds the first contraction.
     None when n has no such split (large primes / semiprimes -> Bluestein
     or the XLA HLO)."""
     cap = _FOUR_STEP_MAX_FACTOR
@@ -165,44 +147,31 @@ def _four_step_factors(n: int) -> tuple[int, int] | None:
 
 
 def _fft_tier(n: int, kind: str) -> str:
-    """Kernel tier for an n-point transform: 'dense' (one matmul vs the full
-    DFT basis), 'four_step' (factorized matmul DFT), or 'xla' (FFT HLO).
-
-    Measured v5e crossovers (round-3 honest chained timing): dense wins
-    up to 2048 for every kind; the four-step factorized form ties/wins the
-    FFT HLO from 4096 through 262144 and loses above (see
-    _FOUR_STEP_MAX_N); prime sizes ride the Bluestein chirp (see below).
+    """Kernel tier for an n-point transform: 'xla' (FFT HLO) on the
+    "auto" and "xla" backends; on the "matmul" backend 'dense' (one matmul
+    vs the full DFT basis) up to 2048, 'ct3' / 'four_step' (factorized
+    matmul DFT) for large composite n, 'bluestein' for the rest.
     """
-    if _BACKEND == "xla":
+    if _BACKEND != "matmul":
         return "xla"
-    cap = _MATMUL_MAX_N // 2
-    if _BACKEND != "matmul" and jax.default_backend() != "tpu":
-        return "xla"
-    if n <= cap:
+    if n <= _MATMUL_MAX_N // 2:
         return "dense"
-    # six-step three-factor tier: keeps highly-composite large N on the
-    # MXU past the two-level form's crossover (measured round 5: 1.6x the
-    # two-level at 2^18 and 2.2-2.6x the XLA HLO at 479232/2^19/2^20 c2c,
-    # 16ch chained; see _CT3_MIN_N for the lower boundary)
+    # six-step three-factor tier past the two-level form's range
     if _CT3_MIN_N <= n <= _CT3_MAX_N and _ct3_split(n) is not None \
             and len(_ct3_split(n)) == 3:
         return "ct3"
     if n <= _FOUR_STEP_MAX_N and _four_step_factors(n) is not None:
         return "four_step"
-    # unfactorable (prime) r2c/c2r up to 4096 still beats the HLO dense
+    # unfactorable (prime) r2c/c2r up to 4096, any kind up to 8192: dense
     if kind in ("r2c", "c2r") and n <= _MATMUL_MAX_N:
         return "dense"
-    # explicit matmul backend keeps the dense form as far as memory allows
-    if _BACKEND == "matmul" and n <= 8192:
+    if n <= 8192:
         return "dense"
-    # prime / too-lopsided n: Bluestein re-route onto the pow2 fast tiers
+    # prime / too-lopsided n: Bluestein re-route onto the fast tiers
     # (the reference covers every N with a naive O(N^2) DFT fallback,
     # src/spectral/fft_kiss.c:76-92; here the chirp-Z identity runs the
-    # transform as pointwise chirp products + pow2 FFTs at next_pow2(2n-1),
-    # which land back on the four-step/dense tiers).  Measured v5e
-    # (16ch x ~1900 rows): c2c/r2c 1.5x over the XLA HLO at n=4099 and
-    # 3.8-3.9x at n=8191 (with the 5-smooth chirp length; at pow2 chirp
-    # lengths 4099 lost 0.7x — czt.next_fast_len).
+    # transform as pointwise chirp products + FFTs at a 5-smooth length
+    # >= 2n-1, which land back on the four-step/dense tiers)
     if n <= _BLUESTEIN_MAX_N:
         return "bluestein"
     return "xla"
@@ -219,10 +188,6 @@ def _bluestein_fft(x, n: int, inverse: bool):
         y = _czt.czt(jnp.conj(x), n, w, 1.0 + 0.0j)
         return jnp.conj(y) / n
     return _czt.czt(x, n, w, 1.0 + 0.0j)
-
-
-def _use_matmul(n: int, kind: str = "r2c") -> bool:
-    return _fft_tier(n, kind) == "dense"
 
 
 @functools.lru_cache(maxsize=8)
@@ -259,8 +224,8 @@ def _basis_cast(n: int, kind: str, part: str, dtype_name: str) -> np.ndarray:
     once per (n, kind, dtype). The device upload happens at the call site:
     caching `jnp.asarray` here would capture a TRACER when first invoked
     inside a jit trace and poison every later trace
-    (UnexpectedTracerError). Cast in numpy BEFORE the transfer — TPUs have
-    no f64 and an eager f64 host->device convert is unimplemented.)"""
+    (UnexpectedTracerError). Cast in numpy BEFORE the transfer, so the f64
+    table never reaches the device."""
     b = _dft_basis(n, kind)
     b = b.real if part == "re" else b.imag
     return np.ascontiguousarray(b).astype(np.dtype(dtype_name))
@@ -289,8 +254,7 @@ def _real_compute_dtype(x):
 def _matmul_fft(x, n: int, inverse: bool):
     # all-real decomposition: X = (xr + i xi)(Br + i Bi)
     #   Re = xr Br - xi Bi,  Im = xr Bi + xi Br
-    # (keeps the MXU in real f32 AND avoids host->device complex constants,
-    # which some PJRT transports cannot transfer)
+    # (keeps the matmuls in real f32)
     kind = "c2c_inv" if inverse else "c2c"
     xr, xi = jnp.real(x), jnp.imag(x)
     dt = _real_compute_dtype(x)
@@ -300,7 +264,7 @@ def _matmul_fft(x, n: int, inverse: bool):
 
 
 def _matmul_rfft_parts(x, n: int):
-    # two real matmuls (cos / -sin); keeps the MXU in real f32
+    # two real matmuls (cos / -sin) in real f32
     dt = _real_compute_dtype(x)
     return (_mm_basis(x, n, "r2c", "re", dt),
             _mm_basis(x, n, "r2c", "im", dt))
@@ -319,9 +283,9 @@ def _matmul_irfft(xh, n: int):
 
 
 # ---------------------------------------------------------------------------
-# four-step factorized DFT (the large-N MXU tier; fills the role of the
+# four-step factorized DFT (the large-N matmul tier; fills the role of the
 # reference's O(N log N) kernels src/spectral/fft_kiss.c:27-74 /
-# fft_fftw.c:221-347 at TPU speed)
+# fft_fftw.c:221-347)
 # ---------------------------------------------------------------------------
 
 def _fs_basis(m: int, inverse: bool, dtype):
@@ -351,7 +315,7 @@ def _four_step_parts(xr, xi, n: int, inverse: bool, out_bins: int | None = None,
                      real_output: bool = False,
                      factors: tuple[int, ...] | None = None,
                      scale: float | None = None):
-    """Four/six-step DFT over the last axis, all-real arithmetic (4 MXU
+    """Four/six-step DFT over the last axis, all-real arithmetic (4
     matmuls per level complex-input / 2 real-input at the first, plus one
     elementwise twiddle per level).
 
@@ -470,9 +434,9 @@ def _pad_or_trim(x, n: int | None, axis: int):
 def fft(x, n: int | None = None, axis: int = -1):
     """Complex-to-complex forward FFT, unscaled.
 
-    Real inputs take the r2c + Hermitian-mirror path: half the basis work
-    of the full c2c transform for an identical result (measured 2.2x on
-    4096-point STFT frames — the c2c basis has 2x the columns)."""
+    On the matmul tiers real inputs take the r2c + Hermitian-mirror path:
+    half the basis work of the full c2c transform for an identical result
+    (the c2c basis has 2x the columns)."""
     x, n = _pad_or_trim(x, n, axis)
     if not jnp.iscomplexobj(x) and n >= 1024 and _fft_tier(n, "c2c") != "xla":
         return hermitian_expand(rfft(x, axis=axis), n, axis=axis)

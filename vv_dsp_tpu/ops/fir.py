@@ -7,19 +7,21 @@ Semantics preserved:
 - apply: causal convolution y[i] = sum_k h[k] x[i-k] with zero initial history,
   i.e. scipy.signal.lfilter(h, [1], x). The reference's streaming ring buffer
   (vv_dsp_fir_state, src/filter/fir.c:160-196) exists to carry the L-1 sample
-  history across blocks; on TPU the same contract is met by
+  history across blocks; on the device the same contract is met by
   (a) whole-signal batched convolution here, and
   (b) ppermute halo exchange between time-shards (vv_dsp_tpu.parallel).
 
-TPU-native design: three interchangeable paths with identical numerics —
+Design: interchangeable paths with identical numerics —
   fir_apply          : direct conv via lax.conv_general_dilated (small taps;
-                       XLA maps it onto the MXU as an implicit matmul),
+                       XLA lowers it to an implicit GEMM),
   fir_apply_fft      : single-block rFFT linear convolution
                        (vv_dsp_fir_apply_fft, src/filter/fir.c:75-135),
   fir_apply_os       : blocked overlap-save rFFT convolution — the streaming
                        FFT path the reference is missing (its FFT path is
                        whole-signal only and reported broken,
-                       docs/simd_optimization_analysis.md:69-73).
+                       docs/simd_optimization_analysis.md:69-73),
+  fir_apply_mxu      : block-Toeplitz matmuls (traced taps, sharded halos);
+  fir_apply_best picks between them by tap count.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def _causal_conv(x, h):
     """y[i] = sum_k h[k] x[i-k], x[<0] = 0; batches over leading axes.
 
     Implemented as lax.conv_general_dilated with left zero padding of L-1 —
-    XLA lowers this to an implicit-GEMM on the MXU.
+    XLA lowers this to an implicit GEMM.
     """
     taps = h.shape[-1]
     batch_shape = x.shape[:-1]
@@ -114,9 +116,8 @@ def fir_apply_os(h, x, block_size: int | None = None):
     taps = h.shape[-1]
     n = x.shape[-1]
     if block_size is None:
-        # keep nfft at 4096 where possible so the TPU matmul-DFT backend
-        # applies (several times faster than the XLA FFT HLO; see ops.fft),
-        # with the maximal valid block for that transform size
+        # nfft 4096 (or the next power of two above 2*taps) with the
+        # maximal valid block for that transform size; untuned on the GPU
         nfft_target = max(4096, next_pow2(2 * taps))
         block_size = nfft_target - taps + 1
     nfft = next_pow2(block_size + taps - 1)
@@ -124,8 +125,8 @@ def fir_apply_os(h, x, block_size: int | None = None):
     right_pad = n_blocks * block_size - n
     xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(taps - 1, right_pad)])
     # Overlapping segments. The segment matrix is (block + taps - 1) wide;
-    # build it from two aligned reshapes + slice (dense passes — a
-    # (n_blocks x seg) gather is ~10x slower on TPU, cf. framing.py).
+    # build it from two aligned reshapes + slice (dense passes instead of
+    # an (n_blocks x seg) gather, cf. framing.py).
     seg_len = block_size + taps - 1
     total = n_blocks * block_size
     a = xp[..., :total].reshape(xp.shape[:-1] + (n_blocks, block_size))
@@ -142,7 +143,7 @@ def fir_apply_os(h, x, block_size: int | None = None):
 
 
 def fir_apply_mxu(h, x, chunk: int = 128):
-    """Causal FIR as block-Toeplitz MXU matmuls — identical to fir_apply.
+    """Causal FIR as block-Toeplitz matmuls — identical to fir_apply.
 
     Derivation: split h into J chunks of C taps and time into blocks of C.
     With windows W_k = x[kC-(C-1) : kC+C] (length 2C-1, zero left pad) and
@@ -150,10 +151,9 @@ def fir_apply_mxu(h, x, chunk: int = 128):
     chunk),
         y_block[m] = sum_j  W_{m-j} @ T_j
     i.e. J matmuls of (blocks, 2C-1) @ (2C-1, C) with j-row-shifted windows.
-    C=128 matches the MXU tile; FLOPs ~= 2 * (2 - 1/C) * taps * n, within 2x
-    of the direct form but running at matmul speed — ~an order of magnitude
-    faster than both the XLA conv (im2col HBM traffic) and the rFFT
-    overlap-save path for taps ~= 1024 (measured on v5e).
+    FLOPs ~= 2 * (2 - 1/C) * taps * n, within 2x of the direct form but
+    running as dense matmuls. Works with traced taps (learned coefficients
+    under jit), which the sharded FIR and the streaming FIR rely on.
     """
     x = config.as_compute(x)
     import jax as _jax
@@ -207,6 +207,15 @@ def fir_apply_mxu(h, x, chunk: int = 128):
                           precision=config.MATMUL_PRECISION)
         y = term if y is None else y + term
     return y.reshape(batch + (nb * C,))[..., :n]
+
+
+def fir_apply_best(h, x):
+    """Causal FIR through the path chosen by tap count: the direct conv
+    up to 64 taps, overlap-save rFFT above (FLOPs grow with log(taps)
+    instead of taps). The crossover is untuned on the GPU."""
+    if jnp.shape(h)[-1] <= 64:
+        return fir_apply(h, x)
+    return fir_apply_os(h, x)
 
 
 def filtfilt_fir(h, x):

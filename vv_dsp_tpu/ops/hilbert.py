@@ -1,7 +1,7 @@
 """Analytic signal, instantaneous phase & frequency
 (reference: src/spectral/hilbert.c).
 
-TPU-native design: the analytic signal is ifft(fft(x) * mask) with the
+Design: the analytic signal is ifft(fft(x) * mask) with the
 one-sided doubling mask baked as a constant; instantaneous phase replaces the
 reference's sequential accumulation loop (src/spectral/hilbert.c:82-92) with a
 vectorized conj-product angle + cumulative sum — identical numerics (the
@@ -41,27 +41,10 @@ def _hilbert_mult(n: int):
     the rfft/irfft factorization of the reference's two-sided mask
     (src/spectral/hilbert.c:47-59): ifft(fft(x) * mask) == x + i*H[x]
     exactly, but runs as TWO half-cost REAL transforms instead of full c2c
-    forward + Hermitian expand + full c2c inverse (measured 4.36 -> 2.60 ms
-    at 479232 x 16ch, v5e round 5)."""
+    forward + Hermitian expand + full c2c inverse."""
     s = np.zeros(n // 2 + 1, dtype=np.float64)
     s[1: (n + 1) // 2] = 1.0
     return s
-
-
-def _prefer_masked_c2c(n: int) -> bool:
-    """Route real-input Hilbert through the fused masked-c2c XLA HLO
-    instead of the r2c/c2r factorization when the auto tier would pick a
-    CT3 plan with tile-UNALIGNED factors.  Measured (v5e, 16ch x 479232 =
-    2^12*117, chained): masked c2c on the mixed-radix FFT HLO 2.68 ms vs
-    3.48 for rfft+irfft on ct3 (factors (96, 78, 64) — 78 pads the MXU
-    tiles); at 16-aligned factors (2^19: (128, 64, 64)) the ct3
-    factorization wins 2x (3.5 vs ~7 ms).  Only applies on the auto
-    backend — explicit set_fft_backend choices are honored."""
-    if _fft.get_fft_backend() != "auto":
-        return False
-    if _fft._fft_tier(n, "c2c") != "ct3":
-        return False
-    return any(f % 16 for f in _fft._ct3_split(n))
 
 
 def _hilbert_pair(x):
@@ -69,11 +52,6 @@ def _hilbert_pair(x):
     n = x.shape[-1]
     dt = _fft._real_compute_dtype(x)
     x = x.astype(dt)
-    if _prefer_masked_c2c(n):
-        mask = jnp.asarray(_analytic_mask(n), dtype=dt)
-        z = jnp.fft.ifft(jnp.fft.fft(x.astype(
-            jnp.complex64 if dt == jnp.float32 else jnp.complex128)) * mask)
-        return x, jnp.imag(z)
     xs = _fft.rfft(x)
     s = jnp.asarray(_hilbert_mult(n), dtype=dt)
     # -i * (re + i*im) * s = (im * s) + i * (-re * s)

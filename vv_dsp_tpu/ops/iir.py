@@ -10,7 +10,7 @@ The reference ships NO design functions (README overclaims; only caller-supplied
 coefficients) — design here is new surface required by the north star
 (BASELINE.json config 3).
 
-TPU-native design: the recurrence is linear in the state s = (z1, z2):
+Design: the recurrence is linear in the state s = (z1, z2):
     s' = A s + B x,   A = [[-a1, 1], [-a2, 0]],  B = [b1 - a1 b0, b2 - a2 b0]
     y  = b0 x + s_prev[0]
 so a length-n filter run is an associative scan over affine maps
@@ -63,9 +63,8 @@ def _biquad_cumulative(x, b0, b1, b2, a1, a2):
     def combine(f, g):
         fa, fb = f
         ga, gb = g
-        # the precision knob matters here: at DEFAULT these run bf16 on
-        # TPU and the scan path missed its documented scipy parity
-        # (measured 0.023 on filtfilt_sos vs 2.8e-7 at full precision)
+        # the precision knob matters here: at a reduced precision the scan
+        # path misses its documented scipy parity
         a = jnp.einsum("...ij,...jk->...ik", ga, fa,
                        precision=config.MATMUL_PRECISION)
         b = jnp.einsum("...ij,...j->...i", ga, fb,
@@ -296,7 +295,7 @@ def iir_apply(sos, x, return_state: bool = False, zi=None):
     scipy's sosfilt(zi=...) convention.
 
     Long signals run the block state-space path (_iir_apply_block): the
-    cascade as one LTI system, blocks of 512 as dense MXU matmuls, block
+    cascade as one LTI system, blocks of 512 as dense matmuls, block
     states coupled by a ~n/512-element affine scan. Short signals and
     unstable designs (pole radius > 1, whose A-powers overflow) keep the
     per-section associative scan.

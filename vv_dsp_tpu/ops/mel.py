@@ -15,9 +15,9 @@ Semantics preserved:
   optional sinusoidal liftering 1 + (L/2) sin(pi i / L) skipping c0
   (mel.c:249-309).
 
-TPU-native design: the reference's triple per-frame/per-mel/per-bin loop
+Design: the reference's triple per-frame/per-mel/per-bin loop
 (mel.c:225-241) and its per-frame DCT *plan create/destroy* (mel.c:287!) become
-two batched matmuls on the MXU: (frames x bins) @ (bins x mels) and
+two batched matmuls: (frames x bins) @ (bins x mels) and
 (frames x mels) @ (mels x K). The filterbank and DCT matrices are the "plan",
 generated host-side in float64.
 """
@@ -27,7 +27,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from vv_dsp_tpu import config
@@ -183,38 +182,19 @@ def mfcc(power_spec, n_fft: int, n_mels: int, n_coeffs: int, sample_rate: float,
 def mel_energies_stft(x, nfft: int, hop: int, n_mels: int,
                       sample_rate: float, window: str = "hann",
                       window_param=None, fmin: float = 0.0,
-                      fmax: float | None = None, variant: str = "htk",
-                      algorithm: str | None = None):
-    """Signal -> STFT mel energies, best-path dispatch: the fused Stockham
-    Pallas kernel on TPU when the geometry allows (no frames / spectrum /
-    power array ever in HBM; ops/pallas_fft.py), else the framing-free
-    power-parts matmul path, else the plain power spectrogram."""
-    from vv_dsp_tpu.ops import pallas_fft as _pf
+                      fmax: float | None = None, variant: str = "htk"):
+    """Signal -> STFT mel energies: the framing-free power-parts matmul
+    path when the dense DFT tier applies (STFT.supports_direct), else the
+    power spectrogram (strided frames + rfft) and the filterbank matmul."""
     from vv_dsp_tpu.ops.stft import STFT
-    from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
 
     if x.ndim != 2 and not jnp.iscomplexobj(x):
         from vv_dsp_tpu.utils.shapes import collapse_leading
         x2, restore = collapse_leading(x)
         return restore(mel_energies_stft(x2, nfft, hop, n_mels, sample_rate,
                                          window, window_param, fmin, fmax,
-                                         variant, algorithm), 2)
+                                         variant), 2)
     plan = STFT(nfft, hop, window, window_param)
-    if (x.ndim == 2 and not jnp.iscomplexobj(x)
-            and (_pf.stft_mel_supported(nfft, hop)
-                 or _pf.stft_mel_packed_supported(nfft, hop))
-            and jax.default_backend() == "tpu"):
-        fast = lambda xv: _pf.stft_mel_energies_pallas(
-            xv, nfft, hop, n_mels, sample_rate, window, window_param,
-            fmin, fmax, variant, algorithm=algorithm)
-
-        def ref(xv):  # XLA path for the backward pass (kernel_grad)
-            re, im = plan.power_parts(xv)
-            return mel_energies_from_power_parts(re, im, nfft, n_mels,
-                                                 sample_rate, fmin, fmax,
-                                                 variant)
-
-        return kernel_with_xla_vjp(fast, ref)(x)
     if plan.supports_direct() and not jnp.iscomplexobj(x):
         re, im = plan.power_parts(x)
         return mel_energies_from_power_parts(re, im, nfft, n_mels,
@@ -233,38 +213,8 @@ def mfcc_stft(x, nfft: int, hop: int, n_mels: int, n_coeffs: int,
               sample_rate: float, window: str = "hann", window_param=None,
               fmin: float = 0.0, fmax: float | None = None,
               log_epsilon: float = 1e-10, lifter: float = 0.0,
-              variant: str = "htk", algorithm: str | None = None):
-    """Signal -> MFCC via the best fused STFT->mel path (see
-    mel_energies_stft); on TPU the log + DCT-II + lifter tail fuses into
-    the same kernel pass (stft_mfcc_pallas)."""
-    from vv_dsp_tpu.ops import pallas_fft as _pf
-    from vv_dsp_tpu.ops.stft import STFT
-    from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-
-    if x.ndim != 2 and not jnp.iscomplexobj(x):
-        from vv_dsp_tpu.utils.shapes import collapse_leading
-        x2, restore = collapse_leading(x)
-        return restore(mfcc_stft(x2, nfft, hop, n_mels, n_coeffs,
-                                 sample_rate, window, window_param, fmin,
-                                 fmax, log_epsilon, lifter, variant,
-                                 algorithm), 2)
-    if (x.ndim == 2 and not jnp.iscomplexobj(x)
-            and (_pf.stft_mel_supported(nfft, hop)
-                 or _pf.stft_mel_packed_supported(nfft, hop))
-            and jax.default_backend() == "tpu"):
-        fast = lambda xv: _pf.stft_mfcc_pallas(
-            xv, nfft, hop, n_mels, n_coeffs, sample_rate, window,
-            window_param, fmin, fmax, log_epsilon, lifter, variant,
-            algorithm=algorithm)
-
-        def ref(xv):  # XLA path for the backward pass (kernel_grad)
-            plan = STFT(nfft, hop, window, window_param)
-            re, im = plan.power_parts(xv)
-            return mfcc_from_power_parts(re, im, nfft, n_mels, n_coeffs,
-                                         sample_rate, fmin, fmax,
-                                         log_epsilon, lifter, variant)
-
-        return kernel_with_xla_vjp(fast, ref)(x)
+              variant: str = "htk"):
+    """Signal -> MFCC: mel_energies_stft, then log, DCT-II and lifter."""
     mel_e = mel_energies_stft(x, nfft, hop, n_mels, sample_rate, window,
                               window_param, fmin, fmax, variant)
     return mfcc_from_log_mel(jnp.log(mel_e + log_epsilon), n_coeffs, lifter)

@@ -10,12 +10,12 @@ Reference semantics preserved (src/resample/resampler.c):
   floor(in_pos), cutoff = min(1, L/M), edge clamp, normalize by kernel sum
   (:88-119); taps forced even, 4..128.
 
-TPU-native design: the per-output-sample gather loops become dense phase
+Design: the per-output-sample gather loops become dense phase
 matrices. For a rational ratio L/M the fractional position k*M/L has exactly L
 distinct fractional phases, so the sinc path is a (L, taps) weight matrix and
 output phase r is a stride-M correlation of the input with row
-(r*M mod L) — i.e. true polyphase structure executed as L batched convolutions
-on the MXU. `resample_poly` provides the scipy.signal.resample_poly-parity
+(r*M mod L) — i.e. true polyphase structure executed as L batched
+convolutions. `resample_poly` provides the scipy.signal.resample_poly-parity
 upfirdn path used by the north-star chain.
 """
 
@@ -166,7 +166,7 @@ def _upfirdn_gather(h, x, up: int, down: int, offset: int, n_out: int):
 
     Executed without materializing the up-rate stream: for t = offset+k*down,
     contributing input indices are j = t//up - i with tap h[(t mod up) + i*up]
-    — a dense gather + per-phase dot (MXU matvec), the classic polyphase
+    — a dense gather + per-phase dot, the classic polyphase
     decomposition.
     """
     h = np.asarray(h, dtype=np.float64)
@@ -217,7 +217,7 @@ def resample_poly(x, up: int, down: int):
 
 
 # ---------------------------------------------------------------------------
-# MXU frame-matmul upfirdn — the fast path for ANY ratio
+# frame-matmul upfirdn — the matmul path for ANY ratio
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=64)
@@ -230,8 +230,7 @@ def _upfirdn_conv_plan(h_key, up: int, down: int, offset: int):
     input windows spans Wd = a_{up-1} - (a_0 - taps_pp + 1) + 1 samples, so
     the whole resample is ONE cross-correlation with stride `down` and `up`
     output channels: W[p, c] = h[r_p + (a_p - c_lo - c)*up] — natural-order
-    output falls out of the (frames, up) reshape with NO phase transposes
-    (the round-1 Pallas kernel burned ~40%% of its time on exactly those).
+    output falls out of the (frames, up) reshape with NO phase transposes.
     Returns (W (up, Wd) float64, c_lo).
     """
     h = np.asarray(h_key, dtype=np.float64)
@@ -254,9 +253,9 @@ def _upfirdn_conv_plan(h_key, up: int, down: int, offset: int):
 
 
 def _upfirdn_conv(h, x, up: int, down: int, offset: int, n_out: int):
-    """upfirdn as one strided MXU conv (see _upfirdn_conv_plan). Identical
-    output to _upfirdn_gather; wins on TPU because the (n_out, taps_pp)
-    gather matrix never exists in HBM and the output needs no reordering."""
+    """upfirdn as one strided conv (see _upfirdn_conv_plan). Identical
+    output to _upfirdn_gather; the (n_out, taps_pp) gather matrix never
+    exists in HBM and the output needs no reordering."""
     W, c_lo = _upfirdn_conv_plan(tuple(np.asarray(h, np.float64)), up, down,
                                  offset)
     wd = W.shape[1]
@@ -283,9 +282,9 @@ def _upfirdn_frames_matmul(h, x, up: int, down: int, offset: int,
 
     frames[k, c] = x[k*down + c_lo + c] built from contiguous reshape views
     (no gather — the 11x framing lesson), then (..., K, Win) @ (Win, up) ->
-    natural-order output. The best form when `up` is large (the einsum's
-    output dim fills MXU tiles; the conv lowering and the Pallas unroll
-    both fall over there), at q*x HBM reads.
+    natural-order output. The form for large `up` (the einsum's output dim
+    is wide where the conv lowering has `up` tiny output channels), at q*x
+    HBM reads.
 
     This is exactly the group=1 instance of the tall-frames plan below.
     """
@@ -293,12 +292,12 @@ def _upfirdn_frames_matmul(h, x, up: int, down: int, offset: int,
 
 
 def resample_poly_mxu(x, up: int, down: int):
-    """scipy.signal.resample_poly parity on the MXU matmul paths (same
+    """scipy.signal.resample_poly parity on the matmul paths (same
     filter and output length as resample_poly; bit-identical geometry).
 
-    Form dispatch (measured, v5e): large `up` rides the frames-matmul einsum
-    (wide output dim fills the MXU; q = ceil(Wd/down) stays small so the
-    framing inflation is bounded); otherwise the strided conv."""
+    Form dispatch (thresholds untuned on the GPU): large `up` rides the
+    frames-matmul einsum (wide output dim; q = ceil(Wd/down) stays small so
+    the framing inflation is bounded); otherwise the strided conv."""
     x = config.as_compute(x)
     g = math.gcd(up, down)
     up //= g
@@ -316,8 +315,13 @@ def resample_poly_mxu(x, up: int, down: int):
     return _upfirdn_conv(h, x, up, down, half_len, n_out)
 
 
+# The polyphase path the pipelines and the benchmark use: the
+# (n_out, taps_pp) gather matrix of resample_poly never exists.
+resample_poly_best = resample_poly_mxu
+
+
 def upfirdn_mxu(h, x, up: int = 1, down: int = 1):
-    """scipy.signal.upfirdn parity on the strided-conv MXU path."""
+    """scipy.signal.upfirdn parity on the strided-conv path."""
     x = config.as_compute(x)
     n_in = x.shape[-1]
     n_out = -(-((n_in - 1) * up + len(np.asarray(h))) // down)
@@ -325,7 +329,7 @@ def upfirdn_mxu(h, x, up: int = 1, down: int = 1):
 
 
 # ---------------------------------------------------------------------------
-# tall-frames upfirdn & fused FIR+resample — ONE MXU pass for the chain head
+# tall-frames upfirdn & fused FIR+resample — ONE matmul for the chain head
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=32)
@@ -402,59 +406,9 @@ def _fused_fir_resample_filter(fir_key, up: int, down: int):
     return np.convolve(up_f, h_r), (len(h_r) - 1) // 2
 
 
-def fir_resample_fused_tiled(h_fir, x, up: int, down: int,
-                             algorithm: str | None = None):
-    """Fused FIR+resample head emitting the banded kernel's raw
-    segment-tiled layout for a zero-copy handoff into the packed STFT
-    kernels: returns (y_tiled (c, b_out, nblk_p), b_out, valid_blocks,
-    n_out) — same numbers as fir_resample_fused (staged-tail correction
-    included, applied in tiled layout) — or None when the handoff doesn't
-    apply (off-TPU, non-2-D, unsupported band geometry, or
-    n_out % b_out != 0).  Segments >= valid_blocks hold convolution tail
-    past n_out and must be masked to zero by the consumer."""
-    x = config.as_compute(x)
-    if x.ndim != 2 or jax.default_backend() != "tpu":
-        return None
-    g = math.gcd(up, down)
-    up //= g
-    down //= g
-    if up == 1 and down == 1:
-        return None
-    h_np = np.asarray(h_fir, dtype=np.float64)
-    n_in = x.shape[-1]
-    n_out = -(-n_in * up // down)
-    gf, offset = _fused_fir_resample_filter(tuple(h_np), up, down)
-    from vv_dsp_tpu.ops import pallas_upfirdn as _pu
-    if not _pu.banded_supported(up, down, len(gf), offset):
-        return None
-    b_out = _pu.pick_b_out(up, down, len(gf), offset)
-    if n_out % b_out:
-        return None
-    m0 = max(0, -(-(up * n_in - offset) // down))
-    n_tail = n_out - m0
-    if not (0 < n_tail <= 1024 and m0 > 0):
-        return None
-    y_t = _pu.upfirdn_banded_pallas(x, gf, up, down, offset, n_out,
-                                    algorithm=algorithm, tiled_output=True)
-    # exact staged tail correction, written into the tiled layout
-    wt, jw0 = _staged_tail_matrix(tuple(h_np), up, down, offset,
-                                  n_in, m0, n_tail)
-    xw = x[..., max(0, jw0):]
-    tail = jnp.einsum("...j,mj->...m", xw,
-                      jnp.asarray(wt[:, :xw.shape[-1]], dtype=x.dtype),
-                      precision=config.MATMUL_PRECISION)
-    for b in range(m0 // b_out, (n_out - 1) // b_out + 1):
-        r0 = max(m0 - b * b_out, 0)
-        r1 = min(n_out - b * b_out, b_out)
-        t0 = b * b_out + r0 - m0
-        y_t = y_t.at[:, r0:r1, b].set(tail[:, t0:t0 + (r1 - r0)])
-    return y_t, b_out, n_out // b_out, n_out
-
-
 def fir_resample_fused(h_fir, x, up: int, down: int,
-                       group: int | None = None,
-                       algorithm: str | None = None):
-    """resample_poly(fir_apply(h_fir, x), up, down) in ONE MXU pass —
+                       group: int | None = None):
+    """resample_poly(fir_apply(h_fir, x), up, down) in ONE matmul pass —
     sample-exact vs the staged pair, including the staged FIR's end-of-signal
     truncation (the composite filter "sees" the FIR tail past n that
     fir_apply truncates, so the last few outputs are recomputed staged).
@@ -462,19 +416,13 @@ def fir_resample_fused(h_fir, x, up: int, down: int,
     This erases the intermediate HBM round trip AND both stages' separate
     launch/layout overheads — the north-star chain's head becomes one
     matmul. FLOP overhead vs the algorithmic minimum is Win/taps_pp ~ 2x
-    at the default group (the wider frames measured faster anyway: MXU
-    tile height beats band zero-fill on v5e).
-
-    algorithm: banded-kernel dot algorithm ("f32" | "bf16x3" | "bf16");
-    None follows the config matmul-precision knob
-    (ops.pallas_upfirdn._resolve_algorithm).
+    at the default group.
     """
     x = config.as_compute(x)
     if x.ndim != 2:
         from vv_dsp_tpu.utils.shapes import collapse_leading
         x2, restore = collapse_leading(x)
-        return restore(fir_resample_fused(h_fir, x2, up, down, group,
-                                          algorithm), 1)
+        return restore(fir_resample_fused(h_fir, x2, up, down, group), 1)
     g = math.gcd(up, down)
     up //= g
     down //= g
@@ -486,26 +434,12 @@ def fir_resample_fused(h_fir, x, up: int, down: int,
     n_out = -(-n_in * up // down)
     gf, offset = _fused_fir_resample_filter(tuple(h_np), up, down)
     taps_pp = -(-len(gf) // up)
-    from vv_dsp_tpu.ops import pallas_upfirdn as _pu
-    from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-    if (jax.default_backend() == "tpu" and x.ndim == 2
-            and _pu.banded_supported(up, down, len(gf), offset)):
-        # banded-matmul Pallas kernel: 3.8 vs 7.1 ms at flagship geometry
-        # (see ops/pallas_upfirdn.py); backward via the tall einsum path
-        grp = max(1, int(round(taps_pp / down)))
-        y = kernel_with_xla_vjp(
-            lambda xv: _pu.upfirdn_banded_pallas(xv, gf, up, down, offset,
-                                                 n_out, algorithm=algorithm),
-            lambda xv: _upfirdn_tall(gf, xv, up, down, offset, n_out, grp),
-        )(x)
-    else:
-        if group is None:
-            # frame stride ~ taps_pp (group*down ~ taps_pp): measured best on
-            # v5e at the flagship geometry (sweep 64/128/177/256/354 ->
-            # 10.7/9.1/8.7/8.3/8.2 ms); wider frames amortize the band's
-            # zero-fill across taller MXU tiles
-            group = max(1, int(round(taps_pp / down)))
-        y = _upfirdn_tall(gf, x, up, down, offset, n_out, group)
+    if group is None:
+        # frame stride ~ taps_pp (group*down ~ taps_pp): wider frames
+        # amortize the band's zero-fill over taller matmul tiles.
+        # Untuned on the GPU.
+        group = max(1, int(round(taps_pp / down)))
+    y = _upfirdn_tall(gf, x, up, down, offset, n_out, group)
 
     # exact staged tail: first output whose window crosses the FIR tail
     # (clamped — for signals shorter than the resample filter's half-length
@@ -624,12 +558,12 @@ def _factor_stages(up: int, down: int, max_side: int = 9):
     return stages
 
 
-def resample_multistage(x, up: int, down: int, use_pallas: bool | None = None):
+def resample_multistage(x, up: int, down: int):
     """Rational resampling as a cascade of small polyphase stages.
 
     For large coprime ratios (e.g. 160/147 for 44.1k->48k) the single-stage
-    polyphase filter has up*taps_pp ~ 20*max(L,M)*... weights — too many for
-    the Pallas unroll and slow even as a dense einsum. Factoring into stages
+    polyphase filter has up*taps_pp ~ 20*max(L,M)*... weights — slow even as
+    a dense einsum. Factoring into stages
     with single-digit ratios keeps every stage in the fast regime and needs
     FEWER total taps (each stage's transition band is wider). The composite
     response differs slightly from scipy.signal.resample_poly's single
@@ -645,18 +579,7 @@ def resample_multistage(x, up: int, down: int, use_pallas: bool | None = None):
         return x
     n_in = x.shape[-1]
     n_out_target = -(-n_in * up // down)
-    if use_pallas is None:
-        import jax
-        use_pallas = jax.default_backend() == "tpu"
-        if use_pallas and x.ndim != 2:
-            from vv_dsp_tpu.utils.shapes import collapse_leading
-            x2, restore = collapse_leading(x)
-            return restore(resample_multistage(x2, up, down), 1)
     for u, d in _factor_stages(up, down):
-        if use_pallas:
-            from vv_dsp_tpu.ops import pallas_kernels as _pk
-            x = _pk.resample_poly_best(x, u, d)
-        else:
-            x = resample_poly(x, u, d)
+        x = resample_poly(x, u, d)
     # cascade of ceils can overshoot by a sample or two
     return x[..., :n_out_target]

@@ -16,7 +16,7 @@ Semantics preserved:
     WRAP     : circular
 - NaN policy applied to input and output (src/filter/savgol.c:237-286).
 
-TPU-native design: the kernel is solved host-side in float64 with a numerically
+Design: the kernel is solved host-side in float64 with a numerically
 superior lstsq (vs the reference's Gaussian elimination on normal equations);
 the apply is one batched conv on device.
 """
@@ -27,7 +27,6 @@ import functools
 import math as _math
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -102,30 +101,6 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
                     dtype=x.dtype)
     xp = _pad(x, window_length // 2, mode)
     batch_shape = xp.shape[:-1]
-    n_out = xp.shape[-1] - window_length + 1
-    if jax.default_backend() == "tpu" and not jnp.iscomplexobj(xp):
-        # valid correlation as the banded-matmul kernel: y[k] =
-        # sum_j xp[j] g[(wl-1) + k - j] with g = reversed kernel
-        # (lax.conv on this TPU stack is ~100x off; ops/pallas_upfirdn.py)
-        from vv_dsp_tpu.ops import pallas_upfirdn as _pu
-        g = np.asarray(savgol_coeffs_np(window_length, polyorder, deriv,
-                                        delta))[::-1]
-        if _pu.banded_supported(1, 1, window_length, window_length - 1):
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-            wj = w  # captured (window_length,) device kernel
-
-            def ref(xv):  # unrolled shift-add correlation, differentiable
-                acc = wj[0] * xv[:, :n_out]
-                for t in range(1, window_length):
-                    acc = acc + wj[t] * xv[:, t:t + n_out]
-                return acc
-
-            xb2 = xp.reshape((-1, xp.shape[-1]))
-            y = kernel_with_xla_vjp(
-                lambda xv: _pu.upfirdn_banded_pallas(
-                    xv, g, 1, 1, window_length - 1, n_out), ref)(xb2)
-            y = y.reshape(batch_shape + (n_out,)).astype(x.dtype)
-            return apply_nan_policy(y, nan_policy)
     xb = xp.reshape((-1, 1, xp.shape[-1]))
     # Correlation (no flip), 'valid'.
     kern = w.reshape((1, 1, window_length))

@@ -3,7 +3,7 @@
 The reference's scalar loops with double accumulators (e.g. Kahan sum in
 src/core/core.c:44-53, Welford variance, one-pass skew/kurtosis in
 src/core/stats.c:61-104) become vectorized jnp reductions. Accuracy idiom:
-reductions accumulate in float32 on TPU; the parity tolerances (1e-4 for
+reductions accumulate in float32; the parity tolerances (1e-4 for
 stats, python/test_stats.py:13) hold for the test signal scales. All
 functions reduce over the last axis and batch over leading axes.
 """

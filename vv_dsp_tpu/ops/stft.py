@@ -1,16 +1,16 @@
 """STFT / ISTFT / spectrogram (reference: src/spectral/stft.c).
 
-TPU-native design: the reference processes one frame per call in a host loop
+Design: the reference processes one frame per call in a host loop
 (vv_dsp_stft_process, src/spectral/stft.c:74-92); here the whole signal is
 framed in one batched gather and transformed with ONE batched FFT over the
-frame axis — the shape XLA tiles best. Reconstruction
+frame axis (one batched cuFFT call on the GPU). Reconstruction
 (vv_dsp_stft_reconstruct, src/spectral/stft.c:95-110) becomes a scatter-add
 overlap-add plus the w^2 normalization accumulator, divided out with the same
 1e-12 guard as the reference driver (tools/dump_stft_roundtrip.c:50-54).
 
 Semantics preserved:
 - forward: frame -> window multiply -> unscaled C2C FFT (complex spectrum of
-  all nfft bins; use `rfft=True` for the Hermitian-packed TPU-friendly form),
+  all nfft bins; use `rfft=True` for the Hermitian-packed half spectrum),
 - frames start at f*hop (non-centered), frame count for spectrogram
   = 1 if n < nfft else 1 + (n - nfft + hop)//hop (src/spectral/stft.c:118),
 - inverse: 1/n-scaled IFFT -> multiply by window -> OLA; norm accumulates w^2.
@@ -84,54 +84,25 @@ class STFT:
             from vv_dsp_tpu.utils.shapes import collapse_leading
             x2, restore = collapse_leading(x)
             return restore(self.process(x2, rfft), 2)
-        n = x.shape[-1]
-        nf = self.num_frames(n)
-        if x.ndim == 2 and not jnp.iscomplexobj(x) and self.nfft >= 256:
-            # the packed-real kernel wins from 256 up (2.0 vs 2.9 ms dense
-            # at 256/64); the plain Stockham from 512 (honest full-sum
-            # chained timing, v5e, 16ch x 480k — round-2's opposite
-            # conclusion came from a benchmark whose sliced consumption
-            # let XLA prune the dense matmul)
-            from vv_dsp_tpu.ops import pallas_fft as _pf
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-            import jax as _jax
-            if (_pf.stft_mel_packed_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                # packed-real kernel: nfft/2 complex FFT + paired-row
-                # Hermitian unpack — 1.6-1.7x the plain Stockham spectrum
-                # (v5e 16ch x 480k: c2c 2630 -> 4359 Msps at 1024/256)
-                fast = lambda xv: _pf.stft_spectrum_packed(
-                    xv, self.nfft, self.hop, self.window, self.window_param,
-                    onesided=rfft)
-                return kernel_with_xla_vjp(
-                    fast, lambda xv: self._process_xla(xv, rfft))(x)
-            if (self.nfft >= 512
-                    and _pf.stft_mel_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                fast = lambda xv: _pf.stft_spectrum_stockham(
-                    xv, self.nfft, self.hop, self.window, self.window_param,
-                    onesided=rfft)
-                return kernel_with_xla_vjp(
-                    fast, lambda xv: self._process_xla(xv, rfft))(x)
-        return self._process_xla(x, rfft)
+        frames = self._windowed_frames(x)
+        if rfft:
+            return _fft.rfft(frames)
+        return _fft.fft(frames)
 
-    def _process_xla(self, x, rfft: bool):
-        """Framed matmul/FFT forward path (also the autodiff reference for
-        the Stockham route)."""
+    def _windowed_frames(self, x):
+        """(..., n) -> (..., frames, nfft) windowed frames, tail frames
+        zero-padded."""
         n = x.shape[-1]
         nf = self.num_frames(n)
         if self.nfft % self.hop == 0:
-            # strided-reshape framing: ~11x cheaper than the gather on TPU
+            # strided-reshape framing: dense slices instead of a gather
             frames = framing.frames_strided(x, self.nfft, self.hop, nf)
         else:
             idx, mask = framing.frame_indices(n, self.nfft, self.hop,
                                               center=False, n_frames=nf)
             frames = jnp.take(x, idx, axis=-1)
             frames = jnp.where(mask, frames, jnp.zeros_like(frames))
-        frames = frames * self.win.astype(frames.dtype)
-        if rfft:
-            return _fft.rfft(frames)
-        return _fft.fft(frames)
+        return frames * self.win.astype(frames.dtype)
 
     def power(self, x):
         """One-sided power spectrogram |rfft(frames)|^2, fused so the complex
@@ -142,48 +113,11 @@ class STFT:
             from vv_dsp_tpu.utils.shapes import collapse_leading
             x2, restore = collapse_leading(x)
             return restore(self.power(x2), 2)
-        n = x.shape[-1]
-        nf = self.num_frames(n)
-        if x.ndim == 2 and not jnp.iscomplexobj(x):
-            from vv_dsp_tpu.ops import pallas_fft as _pf
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-            import jax as _jax
-            if (_pf.stft_mel_packed_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                # packed-real kernel (half the butterfly/tail work and raw
-                # output rows of the plain Stockham power kernel)
-                fast = lambda xv: _pf.stft_power_packed(
-                    xv, self.nfft, self.hop, self.window, self.window_param)
-                return kernel_with_xla_vjp(
-                    fast, lambda xv: self._power_direct(
-                        xv, self.num_frames(xv.shape[-1])))(x)
-            if (_pf.stft_mel_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                # Stockham kernel + one unpermuting gather: ~2x the dense
-                # windowed-basis matmuls at nfft=2048 (ops/pallas_fft.py);
-                # backward runs the XLA parts path (utils/kernel_grad.py)
-                fast = lambda xv: _pf.stft_power_stockham(
-                    xv, self.nfft, self.hop, self.window, self.window_param)
-                return kernel_with_xla_vjp(
-                    fast, lambda xv: self._power_direct(
-                        xv, self.num_frames(xv.shape[-1])))(x)
         if self.supports_direct() and not jnp.iscomplexobj(x):
-            return self._power_direct(x, nf)
-        if self.nfft % self.hop == 0:
-            frames = framing.frames_strided(x, self.nfft, self.hop, nf)
-        else:
-            idx, mask = framing.frame_indices(n, self.nfft, self.hop,
-                                              center=False, n_frames=nf)
-            frames = jnp.take(x, idx, axis=-1)
-            frames = jnp.where(mask, frames, jnp.zeros_like(frames))
-        frames = frames * self.win.astype(frames.dtype)
-        return _fft.rfft_power(frames)
-
-    def _power_direct(self, x, nf: int):
-        """Framing-free power spectrogram for hop | nfft on the dense matmul
-        tier (see power_parts): |X|^2 = re^2 + im^2."""
-        re, im = self.power_parts(x, nf)
-        return re * re + im * im
+            # framing-free dense matmul tier: |X|^2 = re^2 + im^2
+            re, im = self.power_parts(x)
+            return re * re + im * im
+        return _fft.rfft_power(self._windowed_frames(x))
 
     def supports_direct(self) -> bool:
         """True when the framing-free windowed-basis matmul path applies."""
@@ -239,46 +173,6 @@ class STFT:
         dump_stft_roundtrip's per-sample y = recon/norm with norm > 1e-12
         guard (tools/dump_stft_roundtrip.c:50-54).
         """
-        if spec.ndim > 3 and self.nfft >= 2048:
-            lead = spec.shape[:-2]
-            out = self.reconstruct(
-                spec.reshape((-1,) + spec.shape[-2:]), output_len, rfft)
-            return out.reshape(lead + out.shape[-1:])
-        if spec.ndim == 3 and self.nfft >= 256:
-            from vv_dsp_tpu.ops import pallas_fft as _pf
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-            import jax as _jax
-            if (_pf.stft_mel_packed_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                # packed-real inverse: m = nfft/2 complex inverse FFT of
-                # the Hermitian-repacked spectrum — beats the dense c2r
-                # matmul AND the full-size inverse Stockham at every
-                # measured size (v5e 16ch x 480k: 2.5 vs 3.8 dense at
-                # 1024/256, 2.6 vs 4.5 stockham at 2048/512)
-                fast = lambda sp: _pf.istft_packed(
-                    sp, self.nfft, self.hop, output_len, self.window,
-                    self.window_param, rfft=rfft)
-
-                def ref(sp):  # XLA path for the backward pass
-                    t = (_fft.irfft(sp, self.nfft) if rfft
-                         else _fft.ifft(sp).real)
-                    return self._ola_norm(t, output_len)
-
-                return kernel_with_xla_vjp(fast, ref)(spec)
-            if (self.nfft >= 2048
-                    and _pf.stft_mel_supported(self.nfft, self.hop)
-                    and _jax.default_backend() == "tpu"):
-                # inverse Stockham kernel + in-kernel OLA strips
-                fast = lambda sp: _pf.istft_stockham(
-                    sp, self.nfft, self.hop, output_len, self.window,
-                    self.window_param, rfft=rfft)
-
-                def ref(sp):  # XLA path for the backward pass
-                    t = (_fft.irfft(sp, self.nfft) if rfft
-                         else _fft.ifft(sp).real)
-                    return self._ola_norm(t, output_len)
-
-                return kernel_with_xla_vjp(fast, ref)(spec)
         if rfft:
             time = _fft.irfft(spec, self.nfft)
         else:
@@ -312,35 +206,6 @@ class STFT:
         norm = ola(wsq, self.hop, output_len)
         return jnp.where(norm > 1e-12, recon / jnp.where(norm > 1e-12, norm, 1.0),
                          recon)
-
-    def process_packed(self, x):
-        """Forward STFT returning the spectrum in the packed kernels' raw
-        STORAGE layout (ops.pallas_fft.PackedSpectrum) — the zero-copy
-        serving fast path: a process_packed -> [apply_mask / pointwise
-        edits] -> reconstruct_packed roundtrip skips both natural-order
-        relayout passes (measured 1.59 ms vs 2.9 ms for the natural-order
-        roundtrip at 1024/256 x 16ch x 479k on v5e).  Requires 2-D real
-        input, a packed-supported geometry, and a TPU backend; use
-        process() everywhere else (and for training — this path has no
-        custom autodiff)."""
-        from vv_dsp_tpu.ops import pallas_fft as _pf
-        import jax as _jax
-        if not (_pf.stft_mel_packed_supported(self.nfft, self.hop)
-                and x.ndim == 2 and not jnp.iscomplexobj(x)
-                and _jax.default_backend() == "tpu"):
-            raise ValueError("process_packed needs 2-D real input, a "
-                             "packed-supported geometry and a TPU backend; "
-                             "use process()")
-        x = config.as_compute(x)
-        return _pf.stft_spectrum_packed_raw(x, self.nfft, self.hop,
-                                            self.window, self.window_param)
-
-    def reconstruct_packed(self, ps, output_len: int):
-        """Inverse of process_packed (same OLA/norm semantics as
-        reconstruct), consuming the storage-layout planes zero-copy."""
-        from vv_dsp_tpu.ops import pallas_fft as _pf
-        return _pf.istft_packed_from_storage(ps, output_len, self.window,
-                                             self.window_param)
 
     def spectrogram(self, x):
         """Magnitude spectrogram (vv_dsp_stft_spectrogram,

@@ -12,7 +12,7 @@ compose across the mesh.
 Mesh convention: 2-D mesh ``("channel", "block")`` —
   - ``channel``: embarrassingly parallel data axis (channels/batch),
   - ``block``: the time axis split into contiguous blocks; neighbor
-    exchanges ride ICI via ppermute.
+    exchanges ride ppermute between neighbouring shards.
 """
 
 from vv_dsp_tpu.parallel.mesh import make_mesh, initialize_distributed

@@ -19,7 +19,7 @@ locally-known global bin indices, so they stay embarrassingly parallel in
 this layout; ifft_sharded inverts back to the natural block layout.
 
 The cross-shard DFT is N1 (= mesh size, tiny) weighted partial sums fused
-into ONE reduce-scatter over ICI — the communication-optimal form of the
+into ONE reduce-scatter — the communication-optimal form of the
 distributed transpose for small N1.
 """
 
@@ -43,8 +43,8 @@ def _block_dft(xb, nb: int, axis_name: str, sign: float):
     sum_s W^{sign*s*k1} x_s — the length-nb DFT across shards."""
     if nb == 1:
         # single-member axis: the cross-shard DFT is the identity, and a
-        # degenerate 1-group c64 reduce-scatter fails X64 rewriting on some
-        # TPU compilers — skip the collective entirely
+        # degenerate 1-group c64 reduce-scatter is pure overhead — skip
+        # the collective entirely
         return xb
     s = lax.axis_index(axis_name)
     ang = (sign * 2.0 * jnp.pi / nb) * s.astype(jnp.float32)

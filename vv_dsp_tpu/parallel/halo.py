@@ -1,6 +1,6 @@
 """Neighbor halo exchange over the block (time) axis.
 
-The TPU-native replacement for the reference's cross-block state carriers:
+The sharded replacement for the reference's cross-block state carriers:
 - FIR history ring buffer of num_taps-1 samples (src/filter/fir.c:170-193)
   -> `halo_from_left` of taps-1 samples,
 - STFT frame overlap of nfft-hop samples (src/spectral/stft.c:95-110)
@@ -13,7 +13,7 @@ pad past the signal end).
 
 Halos wider than one block are supported: the exchange runs
 ceil(halo / t_local) ppermute rounds, each pulling one block further away
-(neighbor-only hops keep every transfer on adjacent ICI links).
+(neighbor-only hops: one ppermute per round).
 """
 
 from __future__ import annotations

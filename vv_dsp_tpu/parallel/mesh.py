@@ -1,8 +1,8 @@
 """Device mesh construction and multi-host runtime init.
 
-TPU-native replacement for the reference's (nonexistent) distributed layer:
-`jax.distributed.initialize` brings up the PJRT multi-host runtime, and a
-2-D ``("channel", "block")`` mesh maps channels x time-blocks onto chips.
+New design (the reference has no distributed layer):
+`jax.distributed.initialize` brings up the multi-process runtime, and a
+2-D ``("channel", "block")`` mesh maps channels x time-blocks onto devices.
 XLA's collectives over this mesh (ppermute/psum/all_gather emitted by
 shard_map) are the communication backend — the NCCL-equivalent is built in.
 """
@@ -16,19 +16,14 @@ from jax.sharding import Mesh, PartitionSpec as P
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Bring up the multi-host PJRT runtime (no-op on a single process).
+    """Bring up the multi-process runtime; a no-op without a coordinator
+    (one process driving all of its local devices needs no runtime).
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    pass them explicitly only for manual/CPU multi-process simulation.
+    Nothing in the environment describes the cluster, so every process
+    passes the coordinator (``host:port``), the process count and its own
+    id. Call it before anything queries jax.devices().
     """
     if coordinator_address is None and num_processes is None:
-        # TPU pod auto-detection path; harmless no-op on a single process.
-        # NB: do NOT touch jax.process_count()/jax.devices() before this —
-        # any backend query initializes JAX and makes initialize() raise.
-        try:
-            jax.distributed.initialize()
-        except (RuntimeError, ValueError):
-            return  # single process, or already initialized
         return
     jax.distributed.initialize(coordinator_address, num_processes, process_id)
 
@@ -39,9 +34,9 @@ def make_mesh(n_channel_shards: int | None = None,
               axis_names: tuple[str, str] = ("channel", "block")) -> Mesh:
     """Build a 2-D (channel, block) mesh over the available devices.
 
-    Defaults: all devices on the block (time) axis — the axis that needs ICI
-    locality for halo exchange — with channel=1. `jax.make_mesh` orders
-    devices so the trailing mesh axis is ICI-contiguous on TPU slices.
+    Defaults: all devices on the block (time) axis — the axis that carries
+    the halo exchanges — with channel=1. The cards of one host are joined
+    all to all, so the mesh layout follows the algorithm only.
     """
     if devices is None:
         devices = jax.devices()

@@ -64,9 +64,10 @@ def fir_apply_sharded(h, x, mesh: Mesh, channel_axis: str = "channel",
     """Causal FIR over a sharded time axis; identical to ops.fir.fir_apply.
 
     x: (channels, n) with n % n_block_shards == 0. Each shard pulls the
-    taps-1 sample halo from its left neighbor over ICI (zeros on shard 0 =
-    zero initial history) and runs a local conv — direct (implicit-GEMM on
-    the MXU) for small taps, overlap-save rFFT otherwise.
+    taps-1 sample halo from its left neighbor (zeros on shard 0 = zero
+    initial history) and runs a local conv — direct (implicit GEMM) for
+    small taps, block-Toeplitz matmuls above 32 taps, overlap-save rFFT
+    with use_fft=True.
     """
     if isinstance(h, jax.core.Tracer):
         h_np = h  # fir_apply_mxu handles traced taps with on-device tables
@@ -86,9 +87,8 @@ def fir_apply_sharded(h, x, mesh: Mesh, channel_axis: str = "channel",
         if use_fft:
             y = _fir.fir_apply_os(hj, ext)
         elif use_fft is None and taps > 32:
-            # block-Toeplitz MXU form: the fastest local kernel on TPU and
-            # pure XLA, so it composes with shard_map on any backend
-            # (coefficients close over the mapped body as constants)
+            # block-Toeplitz matmul form (coefficients close over the
+            # mapped body as constants; traced taps are supported)
             y = _fir.fir_apply_mxu(h_np, ext)
         else:
             y = _fir.fir_apply(hj, ext)
@@ -184,37 +184,12 @@ def stft_process_sharded(x, nfft: int, hop: int, mesh: Mesh,
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(P(channel_axis, block_axis), P()),
-        out_specs=P(channel_axis, block_axis, None),
-        # pallas_call emits ShapeDtypeStructs without vma annotations; the
-        # specs above already pin the sharding of every output
-        check_vma=False)
+        out_specs=P(channel_axis, block_axis, None))
     def run(xb, w):
         right = _halo.halo_from_right(xb, overlap, block_axis)
         ext = jnp.concatenate([xb, right], axis=-1)
         t_local = xb.shape[-1]
         nf_local = t_local // hop
-        # per-shard fast tier: the same Stockham kernel the single-chip
-        # path uses (Pallas composes with shard_map; frames 0..nf_local-1
-        # read exactly ext's t_local + overlap real samples, the kernel's
-        # zero-padded tail frames beyond that are sliced off).  Measured
-        # 1-device-mesh v5e at 2048/512: 2.3x the framed-matmul body
-        # (benchmarks/sharded_stft_profile.json).
-        import jax as _jax
-        from vv_dsp_tpu.ops import pallas_fft as _pf
-        if (ext.ndim == 2 and not jnp.iscomplexobj(ext)
-                and _pf.stft_mel_supported(nfft, hop)
-                and _jax.default_backend() == "tpu"):
-            from vv_dsp_tpu.utils.kernel_grad import kernel_with_xla_vjp
-
-            def fast(ev):
-                return _pf.stft_spectrum_stockham(
-                    ev, nfft, hop, window, onesided=rfft)[:, :nf_local, :]
-
-            def ref(ev):
-                fr = _framing.frames_strided(ev, nfft, hop, nf_local) * w
-                return _offt.rfft(fr) if rfft else _offt.fft(fr)
-
-            return kernel_with_xla_vjp(fast, ref)(ext)
         if nfft % hop == 0:
             frames = _framing.frames_strided(ext, nfft, hop, nf_local)
         else:

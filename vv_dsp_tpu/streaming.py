@@ -4,7 +4,7 @@ The reference's streaming surface is stateful C structs advanced one block at
 a time: the FIR history ring buffer (vv_dsp_fir_state, src/filter/fir.c:
 160-196), the per-biquad z1/z2 registers (src/filter/iir.h:14-17), the STFT
 handle's frame-by-frame process/reconstruct (src/spectral/stft.c:74-110) and
-the resampler handle (src/resample/resampler.c). TPU-native re-design:
+the resampler handle (src/resample/resampler.c). Re-design:
 
 - state is an explicit immutable pytree; every `*_process` is a pure function
   (state, block) -> (output, new_state), so it jits, vmaps, and composes with
@@ -113,7 +113,7 @@ def fir_stream_process(h, state, block):
     if taps == 1:
         return h[0] * block, state
     ext = jnp.concatenate([state, block], axis=-1)
-    if taps > 32:  # MXU block-Toeplitz form, same dispatch as the sharded op
+    if taps > 32:  # block-Toeplitz matmul form, same dispatch as the sharded op
         y = _fir.fir_apply_mxu(h, ext)[..., taps - 1:]
     else:
         y = _fir.fir_apply(h, ext)[..., taps - 1:]

@@ -10,7 +10,7 @@ import numpy as np
 
 
 def force_cpu():
-    """Dump tools are tiny host utilities — keep them off the TPU."""
+    """Dump tools are tiny host utilities — keep them on the CPU."""
     import jax
     try:
         jax.config.update("jax_platforms", "cpu")

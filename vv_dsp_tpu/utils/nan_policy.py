@@ -6,7 +6,7 @@ VV_DSP_ERROR_NAN_INF, CLAMP -> NaN->0, +Inf->+FLT_MAX, -Inf->-FLT_MAX} applied
 by DCT (src/spectral/dct.c:86-136) and Savitzky-Golay (src/filter/savgol.c:237-286)
 to inputs and outputs.
 
-TPU-native re-design: a global mutable policy is hostile to jit/functional
+Re-design: a global mutable policy is hostile to jit/functional
 semantics, so the policy is an explicit argument on the ops that honor it
 (``dct``, ``savgol``), defaulting to PROPAGATE. ERROR cannot raise from inside
 a traced computation; under jit it degrades to debug-checkable semantics: the

@@ -1,11 +1,9 @@
-"""Leading-axes collapse for 2-D kernels.
+"""Leading-axes collapse for 2-D code paths.
 
-The Pallas fast paths operate on (channels, time) — the reference's ops are
+Some paths operate on (channels, time) — the reference's ops are
 rank-oblivious per-signal loops, so our dispatch must be too: 1-D signals
 and (batch, channels, time) tensors get their leading axes folded into one
-channel axis, run the 2-D kernel, and unfold.  Before round 3 every
-``x.ndim == 2`` gate silently sent non-2-D inputs down the slow XLA path
-(VERDICT round 2, weak #5)."""
+channel axis, run the 2-D path, and unfold."""
 
 from __future__ import annotations
 
